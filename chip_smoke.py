@@ -6,39 +6,49 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. In order:
+checkout. It drives two main paths, x4 DMGASR on a 512x512x102
+Pavia-geometry cube at full width (UNet inner 64, mults 1,2,4,8,8,
+res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16, n_ovls 4,
+n_feats 64, G=9; seeded random weights):
+
+  * configs/pavia_x4_r3.json: image_size 128, the chain entered at
+    t_start=4, latent affine; attention at 64^2 and 32^2 stays below the
+    flash gate. 220 fused-Block launches per cube.
+  * configs/pavia_x4.json: image_size 64, the full T=20 chain, no affine;
+    attention at the 128^2 level (16384 tokens, D=256) goes to the flash
+    kernel, 5 layers per UNet forward. 100 flash and 1100 fused-Block
+    launches per cube.
+
+In order:
 
  1. prints the card (nvidia-smi name and power limit) and versions;
  2. builds every CUDA kernel of the port from csrc/ (one nvcc each, all
-    at once) and prints the build seconds;
- 3. drives the main path once at full width to record every launch
-    signature of the fused GroupNorm -> swish -> conv3x3 kernel: x4
-    DMGASR on a 512x512x102 Pavia-geometry cube (configs/pavia_x4_r3.json:
-    UNet inner 64, mults 1,2,4,8,8, res_blocks 2, GroupNorm 32, cosine
-    T=20 entered at t_start=4, latent affine; GAE n_subs 16, n_ovls 4,
-    n_feats 64, G=9), seeded random weights;
- 4. for each signature, on the card at that shape (B=9): kernel vs its
-    plain PyTorch version (asserted within tolerance), the kernel's,
-    the plain version's and one cuDNN conv's times, and the bound;
- 5. sets the launch count to 0, drives the main path once more, checks
-    the cube (shape, finite, in [0, 1]) and exactly 220 launches, then
-    times it (median of 3) and reads the peak memory;
- 6. holds one full-width UNet forward with the kernel against the same
-    forward with the plain version, and the unfused UNet against the
-    reference torch golden (tests/golden/unet_diffusion_golden.npz);
- 7. prints the card line, the kernels JSON line and, last, the result
+    at once) and prints the build seconds and register use;
+ 3. for each path: sets the launch counts to 0, drives it once while
+    recording every launch signature of both kernels, checks the cube
+    (shape, finite, in [0, 1]) and the exact launch counts, times it
+    (median of 3) and reads the peak memory; holds one full-width UNet
+    forward with the kernels against the same forward with their plain
+    versions;
+ 4. for each recorded signature, on the card at that shape (B=9): kernel
+    vs its plain PyTorch version (asserted within tolerance), the
+    kernel's, the plain version's and one library call's times, and the
+    bound; the flash kernel also at D=128 and at D=512 (S >= 8192);
+ 5. the unfused UNet against the reference torch golden
+    (tests/golden/unet_diffusion_golden.npz);
+ 6. prints the card line, the kernels JSON line and, last, the result
     line {"ok": true, "device": {...}}.
 
-Details go to chiprun_out/chip_smoke.json. ``--profile`` adds, before
-the result lines, one traced cube: device time by kernel name
-(torch.profiler), the device's idle share and the seconds of each stage
-(GAE encode, reverse chain, GAE decode), into
-chiprun_out/chip_smoke_profile.json.
+Details go to chiprun_out/chip_smoke.json. ``--profile`` adds one traced
+cube per path: device time by kernel name (torch.profiler), the device's
+idle share and the seconds of each stage (GAE encode, reverse chain, GAE
+decode), into chiprun_out/chip_smoke_profile.json.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -48,22 +58,34 @@ from contextlib import contextmanager
 from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CONFIG = os.path.join(ROOT, "configs", "pavia_x4_r3.json")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "unet_diffusion_golden.npz")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 GAE_CFG = {"n_subs": 16, "n_ovls": 4, "n_colors": 102, "n_feats": 64, "G": 9}
 CUBE = (1, 512, 512, 102)
-LAUNCHES_PER_CUBE = 220  # 55 fused Blocks per UNet forward x t_start=4
+FUSED, FLASH = "gn_swish_conv3x3", "flash_attention"
+# path -> (config, launches per cube of each kernel)
+PATHS = {
+    # 55 fused Blocks per UNet forward x t_start=4; attention below the gate
+    "pavia_x4_r3": ("pavia_x4_r3.json", {FUSED: 220, FLASH: 0}),
+    # 55 fused Blocks and 5 flash attentions per forward x T=20
+    "pavia_x4": ("pavia_x4.json", {FUSED: 1100, FLASH: 100}),
+}
+# flash checks beside the path's own shape: D=128 (two heads) and D=512
+# with a ragged S, both past the 8192-token gate
+FLASH_EXTRA = ((9, 16384, 2, 128), (4, 8200, 1, 512))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 
 # kernel vs plain version on the card: same bf16 operands, f32 sums in
-# another order (and a rare one-ulp flip of a bf16 activation)
+# another order (and a rare one-ulp flip of a bf16 activation or p)
 TOL_OUT = 1e-2      # atol = rtol on out and the res projection
 TOL_STATS = 1e-3    # max |diff| / max |plain| on the per-row moments
+# on the attention output, whose elements are weighted means of
+# unit-variance values, typically 0.01-0.02 at these shapes
+TOL_FLASH_ABS, TOL_FLASH_REL = 1e-3, 1e-2
 TOL_UNET = 3e-2     # full UNet forward, the JAX package's fused-UNet tolerance
 
 
@@ -96,22 +118,46 @@ def cuda_ms(fn, reps, warmup=1):
 
 
 @contextmanager
-def recording(calls):
-    """Record the signature of every fused-Block call the UNet makes."""
+def recording(fused_calls, flash_calls):
+    """Record the signature of every fused-Block and flash call the UNet
+    makes. The real wrappers still run, and count their own launches."""
+    from hsi_dmgasr_tpu_torch.kernels import attention as attn_mod
     from hsi_dmgasr_tpu_torch.models import unet as unet_mod
 
-    real = unet_mod.gn_swish_conv3x3
+    real_fused, real_flash = unet_mod.gn_swish_conv3x3, attn_mod.flash_attention
 
-    def rec(x, gn_scale, gn_bias, kernel, bias, **kw):
+    def rec_fused(x, gn_scale, gn_bias, kernel, bias, **kw):
         x2 = kw.get("x2")
         sig = (tuple(x.shape), 0 if x2 is None else x2.shape[-1], kernel.shape[-1],
                kw.get("time_bias") is not None, kw.get("residual") is not None,
                kw.get("stats_in") is not None, kw.get("stats_in2") is not None,
                bool(kw.get("emit_stats")), kw.get("res_kernel") is not None)
-        calls[sig] = calls.get(sig, 0) + 1
-        return real(x, gn_scale, gn_bias, kernel, bias, **kw)
+        fused_calls[sig] = fused_calls.get(sig, 0) + 1
+        return real_fused(x, gn_scale, gn_bias, kernel, bias, **kw)
 
-    with mock.patch.object(unet_mod, "gn_swish_conv3x3", rec):
+    def rec_flash(q, k, v, scale):
+        sig = tuple(q.shape)
+        flash_calls[sig] = flash_calls.get(sig, 0) + 1
+        return real_flash(q, k, v, scale)
+
+    with mock.patch.object(unet_mod, "gn_swish_conv3x3", rec_fused), \
+            mock.patch.object(attn_mod, "flash_attention", rec_flash):
+        yield
+
+
+@contextmanager
+def plain_kernels():
+    """Route the UNet through both kernels' plain versions."""
+    from hsi_dmgasr_tpu_torch.kernels import attention as attn_mod
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.models import unet as unet_mod
+
+    def plain(*args, packed=None, **kw):
+        return fc.gn_swish_conv3x3_plain(*args, **kw)
+
+    with mock.patch.object(unet_mod, "gn_swish_conv3x3", plain), \
+            mock.patch.object(attn_mod, "flash_attention", fa.flash_attention_plain):
         yield
 
 
@@ -155,20 +201,24 @@ def make_inputs(sig, device, seed):
     return args, kw
 
 
-def bound(sig):
-    """(bound_ms, bound_by): each input read once, each output written
-    once, f32 activations and bf16 weights, against the H100's peaks."""
-    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj = sig
-    ct, pix = c + c2, b * h * w
-    nbytes = 4 * pix * (ct + cout * (1 + res + proj))
-    nbytes += 2 * (9 + proj) * ct * cout + 4 * (b * h * 2 * (c * sin + c2 * sin2 + cout * emit))
-    flops = 2 * pix * cout * ct * (9 + proj)
+def pick_bound(nbytes, flops):
+    """(bound_ms, bound_by) against the H100's peaks."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bound(sig):
+    """Fused Block: each input read once, each output written once, f32
+    activations and bf16 weights."""
+    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj = sig
+    ct, pix = c + c2, b * h * w
+    nbytes = 4 * pix * (ct + cout * (1 + res + proj))
+    nbytes += 2 * (9 + proj) * ct * cout + 4 * (b * h * 2 * (c * sin + c2 * sin2 + cout * emit))
+    return pick_bound(nbytes, 2 * pix * cout * ct * (9 + proj))
+
+
 def check_signature(sig, seed):
-    """Kernel vs plain version on the card, and the four times."""
+    """Fused kernel vs plain version on the card, and the four times."""
     import torch
     import torch.nn.functional as F
 
@@ -213,14 +263,46 @@ def check_signature(sig, seed):
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def check_flash(shape, seed):
+    """Flash kernel vs plain version on the card, on strided q, k, v views
+    of one qkv tensor as the UNet makes them, and the four times. The
+    library yardstick is one scaled_dot_product_attention on bf16 copies."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+
+    b, s, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = torch.randn((b, s, h, 3 * d), generator=gen, device="cuda").split(d, dim=-1)
+    scale = 1.0 / math.sqrt(h * d)
+    got = fa.flash_attention(q, k, v, scale)
+    want = fa.flash_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = {"max_abs": diff.max().item(), "max_rel": diff.max().item() / want.abs().max().item()}
+    if not bool((diff <= TOL_FLASH_ABS + TOL_FLASH_REL * want.abs()).all()):
+        raise AssertionError(f"flash {shape}: kernel vs plain {err}")
+    del got, want, diff
+
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale), reps=5)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale), reps=2)
+    qb, kb, vb = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, scale=scale), reps=5)
+    del qb, kb, vb
+    b_ms, b_by = pick_bound(4 * 4 * b * s * h * d, 4 * b * h * s * s * d)
+    return {"signature": f"B={b} S={s} H={h} D={d}", "errors": {"out": err}, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
 # ------------------------------------------------------------- the slice
 
 
-def build_pipeline():
+def build_pipeline(config):
     from hsi_dmgasr_tpu_torch.config import load
     from hsi_dmgasr_tpu_torch.pipeline import DMGASRPipeline
 
-    opt = load(CONFIG)
+    opt = load(os.path.join(ROOT, "configs", config))
     opt["model"]["unet"]["fuse"] = True
     return DMGASRPipeline(opt, None, GAE_CFG, seed=0)
 
@@ -287,6 +369,106 @@ def profile_cube(pipe, cube):
             "kernels": [{"name": k[:120], "ms": ms, "calls": n} for k, (ms, n) in top]}
 
 
+def run_path(name, config, expected, cube, profile):
+    """Record, count, check and time one main path. Returns its report
+    and the launch signatures it recorded."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+
+    pipe = build_pipeline(config)
+    fused_calls, flash_calls = {}, {}
+    # the counted main-path run, which also records the launch signatures
+    fc.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    with recording(fused_calls, flash_calls):
+        out = pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
+    recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
+    log(f"[{name}] recorded {len(fused_calls)} fused and {len(flash_calls)} flash launch "
+        f"signatures, {recorded} calls per cube")
+    if recorded != expected:
+        raise AssertionError(f"[{name}] {recorded} kernel calls per cube, expected {expected}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{name}] main path: {launches} kernel launches, peak memory {peak_gib:.2f} GiB")
+    if launches != expected:
+        raise AssertionError(f"[{name}] {launches} launches in the main-path run, expected {expected}")
+    if tuple(out.shape) != CUBE or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[{name}] cube {tuple(out.shape)} or non-finite values")
+    lo, hi = out.min().item(), out.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"[{name}] cube outside [0, 1]: [{lo}, {hi}]")
+    del out
+    times = []
+    for r in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(3 + r))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    report = {"config": config, "cube_seconds": statistics.median(times), "cube_times": times,
+              "peak_memory_gib": peak_gib, "launches": launches}
+    log(f"[{name}] cube seconds (median of 3): {report['cube_seconds']:.4f} {times}")
+
+    # full-width UNet forward, kernels vs plain versions
+    unet = pipe.ddpm.unet
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.inference_mode():
+        cond = pipe._fold(pipe.encode(cube))
+        x = torch.cat([cond, torch.randn(cond.shape, generator=gen, device="cuda")], -1)
+        t = torch.full((x.shape[0], 1), 0.5, device="cuda")
+        y_kernel = unet(x, t)
+        t0 = time.perf_counter()
+        unet(x, t)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        with plain_kernels():
+            y_plain = unet(x, t)
+        d = (y_kernel - y_plain).abs()
+        unet_err = {"max_abs": d.max().item(), "max_rel": d.max().item() / y_plain.abs().max().item()}
+        if not bool((d <= TOL_UNET + TOL_UNET * y_plain.abs()).all()):
+            raise AssertionError(f"[{name}] full-width UNet kernels vs plain: {unet_err}")
+    del y_kernel, y_plain, d, x, cond
+    log(f"[{name}] full-width UNet forward (B=9, 512^2): kernels vs plain {unet_err}, "
+        f"forward {fwd_s:.4f} s")
+    report.update(unet_forward_err=unet_err, unet_forward_s=fwd_s)
+
+    if profile:
+        prof = profile_cube(pipe, cube)
+        report["profile"] = prof
+        log(f"[{name}] profile: wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.4f}, "
+            f"stages {prof['stages']}")
+        for k in prof["kernels"][:12]:
+            log(f"  {k['ms']:9.3f} ms  x{k['calls']:<5} {k['name'][:90]}")
+    del pipe
+    torch.cuda.empty_cache()
+    return report, fused_calls, flash_calls
+
+
+def kernel_entry(name, source, replaces, rows, launches):
+    """The kernels-line entry: times summed over the counted main-path
+    runs (launches of each signature x time per launch), per path too."""
+    paths = {}
+    for path in PATHS:
+        n = {k: sum(r["counts"][path] * r[k] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        paths[path] = dict(launches=launches[path], **n)
+    total = {k: sum(p[k] for p in paths.values())
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    by_bytes = sum(r["bound_ms"] * sum(r["counts"].values())
+                   for r in rows if r["bound_by"] == "bytes")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches.values()),
+            "max_abs_err": max(r["errors"]["out"]["max_abs"] for r in rows),
+            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
+            "library_ms": total["library_ms"], "paths": paths}
+
+
 def main():
     import argparse
 
@@ -294,7 +476,7 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one cube and break its time down")
+                    help="also trace one cube per path and break its time down")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -302,8 +484,6 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from hsi_dmgasr_tpu_torch.kernels import build
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
-    from hsi_dmgasr_tpu_torch.models import unet as unet_mod
 
     t_script = time.perf_counter()
     card = card_line()
@@ -323,131 +503,88 @@ def main():
         log(f"nvcc {name}: {secs:.1f} s")
         log("\n".join(line for line in out.splitlines() if "registers" in line or "spill" in line))
 
-    # ---- 3. the main path, recording launch signatures (warm-up run)
-    pipe = build_pipeline()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cube = torch.rand(CUBE, generator=gen, device="cuda")
-    calls = {}
-    with recording(calls):
-        pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(1))
-    torch.cuda.synchronize()
-    per_cube = sum(calls.values())
-    log(f"recorded {len(calls)} launch signatures, {per_cube} launches per cube")
-    if per_cube != LAUNCHES_PER_CUBE:
-        raise AssertionError(f"{per_cube} fused Block calls per cube, expected {LAUNCHES_PER_CUBE}")
+    # ---- 3. the main paths
+    cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    report["paths"] = {}
+    fused_sigs, flash_sigs = {}, {}
+    for path, (config, expected) in PATHS.items():
+        report["paths"][path], fused_calls, flash_calls = run_path(
+            path, config, expected, cube, args.profile)
+        for sigs, calls in ((fused_sigs, fused_calls), (flash_sigs, flash_calls)):
+            for sig, n in calls.items():
+                sigs.setdefault(sig, dict.fromkeys(PATHS, 0))[path] = n
 
-    # ---- 4. kernel vs plain and timings per signature
-    rows = []
-    for i, (sig, n) in enumerate(sorted(calls.items(), key=lambda kv: -kv[0][0][1])):
+    # ---- 4. each kernel vs its plain version, and timings, per signature
+    fused_rows = []
+    for i, (sig, counts) in enumerate(sorted(fused_sigs.items(), key=lambda kv: -kv[0][0][1])):
         row = check_signature(sig, seed=100 + i)
-        row["launches_per_cube"] = n
-        rows.append(row)
+        row["counts"] = counts
+        fused_rows.append(row)
         e = row["errors"]
-        log(f"{row['signature']:<48} x{n:<3} " + " ".join(
+        log(f"{row['signature']:<48} {counts} " + " ".join(
             f"{k} abs {v['max_abs']:.2e} rel {v['max_rel']:.2e}" for k, v in e.items())
             + f" | ms {row['ms']:.3f} plain {row['plain_ms']:.3f} cudnn {row['library_ms']:.3f}"
             f" bound {row['bound_ms']:.3f} ({row['bound_by']})")
         torch.cuda.empty_cache()
-    report["signatures"] = rows
-    levels = {}
-    for r in rows:
-        lv = levels.setdefault(r["level"], dict.fromkeys(
-            ("launches", "ms", "bound_ms", "plain_ms", "library_ms"), 0))
-        lv["launches"] += r["launches_per_cube"]
-        for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
-            lv[key] += r[key] * r["launches_per_cube"]
-    report["levels"] = levels
-    for name, lv in levels.items():
-        log(f"per cube at {name}: {lv['launches']} launches, kernel {lv['ms']:.3f} ms, bound "
-            f"{lv['bound_ms']:.3f}, plain {lv['plain_ms']:.3f}, cudnn {lv['library_ms']:.3f}")
+    flash_rows = []
+    extra = {shape: dict.fromkeys(PATHS, 0) for shape in FLASH_EXTRA}
+    for i, (shape, counts) in enumerate(list(flash_sigs.items()) + list(extra.items())):
+        row = check_flash(shape, seed=200 + i)
+        row["counts"] = counts
+        flash_rows.append(row)
+        err = row["errors"]["out"]
+        log(f"flash {row['signature']:<30} {counts} abs {err['max_abs']:.2e} rel "
+            f"{err['max_rel']:.2e} | ms {row['ms']:.3f} plain {row['plain_ms']:.3f} "
+            f"sdpa {row['library_ms']:.3f} bound {row['bound_ms']:.3f} ({row['bound_by']})")
+        torch.cuda.empty_cache()
+    report["fused_signatures"], report["flash_signatures"] = fused_rows, flash_rows
+    for path in PATHS:
+        levels = {}
+        for r in fused_rows:
+            lv = levels.setdefault(r["level"], dict.fromkeys(
+                ("launches", "ms", "bound_ms", "plain_ms", "library_ms"), 0))
+            n = r["counts"][path]
+            lv["launches"] += n
+            for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+                lv[key] += r[key] * n
+        report["paths"][path]["fused_levels"] = levels
+        for name, lv in levels.items():
+            log(f"[{path}] fused per cube at {name}: {lv['launches']} launches, kernel "
+                f"{lv['ms']:.3f} ms, bound {lv['bound_ms']:.3f}, plain {lv['plain_ms']:.3f}, "
+                f"cudnn {lv['library_ms']:.3f}")
 
-    # ---- 5. the counted main-path run, then timing
-    fc.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-    out = pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(2))
-    torch.cuda.synchronize()
-    launches = fc.LAUNCHES
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"main path: {launches} kernel launches, peak memory {peak_gib:.2f} GiB")
-    if launches != LAUNCHES_PER_CUBE:
-        raise AssertionError(f"{launches} launches in the main-path run, expected {LAUNCHES_PER_CUBE}")
-    if tuple(out.shape) != CUBE or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"cube {tuple(out.shape)} or non-finite values")
-    lo, hi = out.min().item(), out.max().item()
-    if lo < 0.0 or hi > 1.0:
-        raise AssertionError(f"cube outside [0, 1]: [{lo}, {hi}]")
-    times = []
-    for r in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(3 + r))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    report.update(cube_seconds=statistics.median(times), cube_times=times,
-                  peak_memory_gib=peak_gib, main_path_launches=launches)
-    log(f"cube seconds (median of 3): {report['cube_seconds']:.4f} {times}")
-
-    # ---- 6. full-width UNet forward, kernel vs plain; golden check
-    unet = pipe.ddpm.unet
-    with torch.inference_mode():
-        cond = pipe._fold(pipe.encode(cube))
-        x = torch.cat([cond, torch.randn(cond.shape, generator=gen, device="cuda")], -1)
-        t = torch.full((x.shape[0], 1), 0.5, device="cuda")
-        y_kernel = unet(x, t)
-        t0 = time.perf_counter()
-        unet(x, t)
-        torch.cuda.synchronize()
-        fwd_s = time.perf_counter() - t0
-        def plain(*args, packed=None, **kw):
-            return fc.gn_swish_conv3x3_plain(*args, **kw)
-
-        with mock.patch.object(unet_mod, "gn_swish_conv3x3", plain):
-            y_plain = unet(x, t)
-        d = (y_kernel - y_plain).abs()
-        unet_err = {"max_abs": d.max().item(), "max_rel": d.max().item() / y_plain.abs().max().item()}
-        if not bool((d <= TOL_UNET + TOL_UNET * y_plain.abs()).all()):
-            raise AssertionError(f"full-width UNet kernel vs plain: {unet_err}")
-    del y_kernel, y_plain, d
-    log(f"full-width UNet forward (B=9, 512^2): kernel vs plain {unet_err}, forward {fwd_s:.4f} s")
-    report.update(unet_forward_err=unet_err, unet_forward_s=fwd_s, golden_max_abs=golden_check())
+    # ---- 5. golden
+    report["golden_max_abs"] = golden_check()
     log(f"golden sr3 UNet on the card: max abs err {report['golden_max_abs']:.2e}")
 
+    # ---- 6. results
+    def launches(kernel):
+        return {p: report["paths"][p]["launches"][kernel] for p in PATHS}
+
+    entries = [
+        kernel_entry(FUSED, "hsi_dmgasr_tpu_torch/csrc/fused_conv.cu",
+                     "hsi_dmgasr_tpu/kernels/fused_conv.py:824", fused_rows, launches(FUSED)),
+        kernel_entry(FLASH, "hsi_dmgasr_tpu_torch/csrc/flash_attention.cu",
+                     "hsi_dmgasr_tpu/kernels/flash_attention.py:119", flash_rows,
+                     launches(FLASH)),
+    ]
+    for e in entries:
+        for path, p in e["paths"].items():
+            log(f"[{path}] {e['name']} per cube: {p['launches']} launches, kernel "
+                f"{p['ms']:.3f} ms, bound {p['bound_ms']:.3f}, plain {p['plain_ms']:.3f}, "
+                f"library {p['library_ms']:.3f}")
+    report["kernels"] = entries
     if args.profile:
-        prof = profile_cube(pipe, cube)
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:
-            json.dump(prof, f, indent=1)
-        log(f"profile: wall {prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms,"
-            f" idle share {prof['idle_share']:.4f}, stages {prof['stages']}")
-        for k in prof["kernels"][:12]:
-            log(f"  {k['ms']:9.3f} ms  x{k['calls']:<5} {k['name'][:90]}")
-
-    # ---- 7. results
-    def per_cube_sum(key):
-        return sum(r[key] * r["launches_per_cube"] for r in rows)
-
-    by_bytes = sum(r["bound_ms"] * r["launches_per_cube"] for r in rows if r["bound_by"] == "bytes")
-    entry = {
-        "name": "gn_swish_conv3x3",
-        "route": "cuda",
-        "source": "hsi_dmgasr_tpu_torch/csrc/fused_conv.cu",
-        "replaces": "hsi_dmgasr_tpu/kernels/fused_conv.py:824",
-        "launches": launches,
-        "max_abs_err": max(r["errors"]["out"]["max_abs"] for r in rows),
-        "ms": per_cube_sum("ms"),
-        "plain_ms": per_cube_sum("plain_ms"),
-        "bound_ms": per_cube_sum("bound_ms"),
-        "bound_by": "bytes" if by_bytes >= per_cube_sum("bound_ms") / 2 else "operations",
-        "library_ms": per_cube_sum("library_ms"),
-    }
-    report["kernels"] = [entry]
+            json.dump({p: r.pop("profile") for p, r in report["paths"].items()}, f, indent=1)
     report["script_s"] = time.perf_counter() - t_script
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    log("kernel times are per x4 cube: sum over the main path's launch signatures of "
-        "launches per cube x time per launch")
+    log("kernel times are summed over the counted runs of both paths: launches of each "
+        "signature x time per launch")
     log(f"script seconds: {report['script_s']:.1f}")
     log(card)
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

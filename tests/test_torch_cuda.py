@@ -9,14 +9,20 @@ Tolerance: the kernel and the plain version see the same bf16 operands,
 so they differ only by f32 summation order and by a rare one-ulp flip
 of a bf16-rounded activation (|w| * 2^-8 * |a| on one tap):
 atol = rtol = 1e-2 on outputs, 1e-3 relative to the largest moment on
-the per-row stats.
+the per-row stats. The flash kernel and its plain version also share bf16
+operands (q * scale, k, v, p); they differ by f32 summation order, the
+kernel's ex2.approx against exp, and so a rare one-ulp flip of a bf16 p:
+atol 1e-3, rtol 1e-2. The outputs are weighted means of unit-variance
+values, typically 0.01-0.1 here, and the kernel has differed by at most
+about 1e-4 at the main path's shape on an H100. The peaked softmax,
+whose outputs are near 1, keeps atol 1e-2 (see its docstring).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from hsi_dmgasr_tpu_torch.kernels import fused_conv
+from hsi_dmgasr_tpu_torch.kernels import attention, flash_attention, fused_conv
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +102,60 @@ def test_kernel_rejects_unaligned_channels(dev):
     args, kw = _case(1, 4, 8, 16, 0, 16, "none", torch.float32, dev)
     with pytest.raises(ValueError, match="multiples"):
         fused_conv.gn_swish_conv3x3(*args, **kw)
+
+
+FLASH_CASES = [
+    (2, 300, 1, 128),   # ragged S: a masked last K tile and unstored Q rows
+    (1, 200, 2, 256),   # multi-head, two column slices
+    (1, 130, 1, 384),
+    (2, 70, 1, 512),    # four column slices
+    (1, 64, 3, 128),    # one tile exactly
+]
+
+
+def _qkv(b, s, h, d, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, s, h, 3 * d), generator=gen, device=dev)
+    return qkv.split(d, dim=-1)
+
+
+@pytest.mark.parametrize("shape", FLASH_CASES)
+def test_flash_matches_plain(dev, shape):
+    q, k, v = _qkv(*shape, dev)
+    scale = 1.0 / np.sqrt(shape[2] * shape[3])
+    want = flash_attention.flash_attention_plain(q, k, v, scale)
+    n0 = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == n0 + 1
+    assert got.shape == want.shape and got.dtype == want.dtype and got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-2)
+
+
+def test_flash_peaked_softmax(dev):
+    """Large logits: the running max moves across tiles and most p round
+    to zero. The outputs are then single rows of v, |out| about 0.8, and
+    a one-ulp bf16 flip of a p near 1/2 moves one by up to 2^-9 |v|
+    (2.9e-3 on an H100): atol = rtol = 1e-2."""
+    q, k, v = _qkv(1, 500, 1, 128, dev, seed=1)
+    want = flash_attention.flash_attention_plain(q * 8, k, v, 1.0)
+    got = flash_attention.flash_attention(q * 8, k, v, 1.0)
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+
+
+def test_flash_rejects_unaligned_rows(dev):
+    qkv = torch.zeros((1, 64, 1, 3 * 128 + 1), device=dev)
+    q, k, v = qkv[..., 1:].split(128, dim=-1)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention.flash_attention(q, k, v, 0.1)
+
+
+def test_gate_launches_the_kernel_on_the_card(dev):
+    q, k, v = _qkv(1, 8192, 1, 128, dev, seed=2)
+    n0 = flash_attention.LAUNCHES
+    out = attention.spatial_attention(q, k, v, 1.0 / np.sqrt(128))
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == n0 + 1 and out.shape == (1, 8192, 128)
+    q, k, v = _qkv(1, 1024, 1, 512, dev, seed=3)
+    attention.spatial_attention(q, k, v, 1.0 / np.sqrt(512))
+    assert flash_attention.LAUNCHES == n0 + 1

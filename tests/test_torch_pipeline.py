@@ -10,17 +10,30 @@ over the UNet that its ``define_G`` builds from the same config.
 Tolerances: unfused (f32 end to end) 1e-4 on the cube and on the metric
 dict (relative); fused 3e-2 on the cube, the JAX package's fused-UNet
 tolerance, with the metric dict then held to 1e-2 relative.
+
+A second case has the shape of configs/pavia_x4.json: no t_start, no
+latent affine, the full (short) chain, and attention on the flash path on
+both sides. Its Blocks are the f32 ones, so the case isolates the
+attention route: from pure noise the bf16 fused Blocks alone move the JAX
+package's own cube past the fused tolerance against its f32 Blocks here,
+so no tolerance of the port could tell that drift from a fault.
+Tolerance 5e-3, the flash function's, for its bf16 operand rounding
+(1.3e-3 on this seed, where the cube is typically 0.19).
 """
 
+import functools
 import os
 from types import SimpleNamespace
+from unittest import mock
 
 import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from hsi_dmgasr_tpu.config import load_json_with_comments as j_load_json
+from hsi_dmgasr_tpu.kernels import attention as j_attention
 from hsi_dmgasr_tpu.evalhsi import quality_assessment_jax
 from hsi_dmgasr_tpu.models import GAE as JGAE
 from hsi_dmgasr_tpu.models.networks import define_G as j_define_G
@@ -29,6 +42,8 @@ from hsi_dmgasr_tpu.pipeline import DMGASRPipeline as JPipeline
 from hsi_dmgasr_tpu_torch.config import load, load_json_with_comments
 from hsi_dmgasr_tpu_torch.evalhsi.torch_metrics import quality_assessment_torch
 from hsi_dmgasr_tpu_torch.io.convert_torch import load_jax_params
+from hsi_dmgasr_tpu_torch.kernels import attention
+from hsi_dmgasr_tpu_torch.models import unet as unet_mod
 from hsi_dmgasr_tpu_torch.models.gae import GAE
 from hsi_dmgasr_tpu_torch.pipeline import DMGASRPipeline
 from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
@@ -95,12 +110,12 @@ def _pipelines(weights, fuse):
     return jpipe, DMGASRPipeline(opt, gae_sd, GAE_CFG, ddpm=ddpm, device="cpu")
 
 
-def _jax_replay(jpipe, sr, x_init, noise):
+def _jax_replay(jpipe, sr, x_init, noise, t_start=3):
     d = jpipe.ddpm
     cond = jpipe._fold(jpipe.encode(sr))
     z = d.val_diffusion.sample_loop(
         lambda x, t: d.unet.apply(d.variables, x, t), jax.random.PRNGKey(0), cond=cond,
-        x_init=x_init, noise_seq=noise, t_start=3)
+        x_init=x_init, noise_seq=noise, t_start=t_start)
     return np.clip(np.asarray(jpipe.decode(jpipe._unfold(z, sr.shape[0]))), 0, 1)
 
 
@@ -121,6 +136,56 @@ def test_slice_matches_jax(cubes, weights, fuse, tol, mtol):
     host, _, _ = pipe.evaluate(sr, hr, x_init=x_init, noise_seq=noise, on_device=False)
     for k in want_m:
         np.testing.assert_allclose(host[k], metrics[k], rtol=1e-4, err_msg=k)
+
+
+def _x4_opt(steps):
+    """configs/pavia_x4.json's schema, narrow: no t_start, no latent
+    affine. image_size 16 under a 32x32 cube puts attn_res [8] on the
+    16^2 level, where mults [1, 4] make D = 128, and the mid block sits
+    there too: 4 attention layers per forward, 256 tokens each."""
+    opt = _opt(False)
+    opt["gae"] = {}
+    opt["model"]["unet"]["channel_multiplier"] = [1, 4]
+    for phase in ("train", "val"):
+        opt["model"]["beta_schedule"][phase]["n_timestep"] = steps
+    del opt["model"]["diffusion"]["t_start"]
+    return opt
+
+
+def test_full_chain_with_flash_attention_matches_jax(monkeypatch):
+    """Attention through the flash function on both sides: the JAX
+    package's Pallas kernel in interpret mode (force_pallas), the port's
+    plain version (force_flash)."""
+    steps = 3
+    rng = np.random.RandomState(5)
+    hr = rng.rand(1, 32, 32, 31).astype(np.float32)
+    sr = np.clip(hr + 0.05 * rng.randn(*hr.shape), 0, 1).astype(np.float32)
+    x_init = rng.randn(5, 32, 32, 3).astype(np.float32)
+    noise = rng.randn(steps, 5, 32, 32, 3).astype(np.float32)
+    opt = _x4_opt(steps)
+    gae = randomize(GAE(**GAE_KW), 1)
+    gae_vars = jax_variables(JGAE(**GAE_KW), gae, np.zeros((1, 32, 32, 31), np.float32))
+    ddpm = DDPMModel(opt, device="cpu")
+    randomize(ddpm.unet, 2)
+    junet, _ = j_define_G(opt)
+    unet_vars = jax_variables(junet, ddpm.unet, np.zeros((1, 32, 32, 6), np.float32),
+                              np.zeros((1, 1), np.float32))
+    jpipe = JPipeline(opt, gae_vars, GAE_CFG, ddpm=SimpleNamespace(
+        unet=junet, variables=unet_vars, val_diffusion=j_diffusion(opt, "val")))
+    pipe = DMGASRPipeline(opt, gae.state_dict(), GAE_CFG, ddpm=ddpm, device="cpu")
+    assert pipe.latent_shift == 0.0 and pipe.latent_scale == 1.0
+
+    monkeypatch.setattr(j_attention, "spatial_attention",
+                        functools.partial(j_attention.spatial_attention, force_pallas=True))
+    with pltpu.force_tpu_interpret_mode():
+        want = _jax_replay(jpipe, sr, x_init, noise, t_start=None)
+    monkeypatch.setattr(unet_mod, "spatial_attention",
+                        functools.partial(attention.spatial_attention, force_flash=True))
+    with mock.patch.object(attention, "flash_attention", wraps=attention.flash_attention) as spy:
+        got = pipe.super_resolve(sr, x_init=x_init, noise_seq=noise).numpy()
+    assert spy.call_count == 4 * steps
+    assert got.shape == (1, 32, 32, 31)
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
 
 
 def test_torch_metrics_match_jax():
