@@ -6,10 +6,10 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives two main paths, x4 DMGASR on a 512x512x102
-Pavia-geometry cube at full width (UNet inner 64, mults 1,2,4,8,8,
-res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16, n_ovls 4,
-n_feats 64, G=9; seeded random weights):
+checkout. It drives three main paths. Two are x4 DMGASR on a
+512x512x102 Pavia-geometry cube at full width (UNet inner 64, mults
+1,2,4,8,8, res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16,
+n_ovls 4, n_feats 64, G=9; seeded random weights):
 
   * configs/pavia_x4_r3.json: image_size 128, the chain entered at
     t_start=4, latent affine; attention at 64^2 and 32^2 stays below the
@@ -19,21 +19,34 @@ n_feats 64, G=9; seeded random weights):
     kernel, 5 layers per UNet forward. 100 flash and 1100 fused-Block
     launches per cube.
 
+The third is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
+
+  * int8_probe: chains of 4000 dependent dots x @ w with a requantize
+    step, at M = 4096 and (K, N) = (512, 512), (576, 256), (192, 256),
+    int8 -> int32 and bf16 -> f32, through the library's dot and through
+    the blocked-dot kernel; each chain captured in a CUDA graph and
+    replayed once per input (4 inputs). 6 x (1 + 4 x 4000) = 96006
+    blocked-dot launches.
+
 In order:
 
  1. prints the card (nvidia-smi name and power limit) and versions;
  2. builds every CUDA kernel of the port from csrc/ (one nvcc each, all
     at once) and prints the build seconds and register use;
- 3. for each path: sets the launch counts to 0, drives it once while
-    recording every launch signature of both kernels, checks the cube
-    (shape, finite, in [0, 1]) and the exact launch counts, times it
+ 3. for each Pavia path: sets the launch counts to 0, drives it once
+    while recording every launch signature of both kernels, checks the
+    cube (shape, finite, in [0, 1]) and the exact launch counts, times it
     (median of 3) and reads the peak memory; holds one full-width UNet
     forward with the kernels against the same forward with their plain
-    versions;
+    versions. Then the probe: counts to 0, the probe run once, the exact
+    launch counts, and the int8 chains of the kernel and the library
+    held equal bit for bit after 4000 links;
  4. for each recorded signature, on the card at that shape (B=9): kernel
     vs its plain PyTorch version (asserted within tolerance), the
     kernel's, the plain version's and one library call's times, and the
-    bound; the flash kernel also at D=128 and at D=512 (S >= 8192);
+    bound; the flash kernel also at D=128 and at D=512 (S >= 8192); the
+    blocked dot at each probe case and dtype, and a 3-link captured
+    chain against the same chain run eagerly;
  5. the unfused UNet against the reference torch golden
     (tests/golden/unet_diffusion_golden.npz);
  6. prints the card line, the kernels JSON line and, last, the result
@@ -63,7 +76,8 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 GAE_CFG = {"n_subs": 16, "n_ovls": 4, "n_colors": 102, "n_feats": 64, "G": 9}
 CUBE = (1, 512, 512, 102)
-FUSED, FLASH = "gn_swish_conv3x3", "flash_attention"
+FUSED, FLASH, DOT = "gn_swish_conv3x3", "flash_attention", "blocked_dot"
+PROBE = "int8_probe"
 # path -> (config, launches per cube of each kernel)
 PATHS = {
     # 55 fused Blocks per UNet forward x t_start=4; attention below the gate
@@ -87,6 +101,9 @@ TOL_STATS = 1e-3    # max |diff| / max |plain| on the per-row moments
 # unit-variance values, typically 0.01-0.02 at these shapes
 TOL_FLASH_ABS, TOL_FLASH_REL = 1e-3, 1e-2
 TOL_UNET = 3e-2     # full UNet forward, the JAX package's fused-UNet tolerance
+# blocked dot, bf16: f32 sums in another order than the plain version's
+# float64, on outputs of about sqrt(K) = 14-24 (int8 is held bit for bit)
+TOL_DOT_ABS, TOL_DOT_REL = 1e-3, 1e-4
 
 
 def log(msg):
@@ -112,6 +129,25 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls=20, reps=5):
+    """Mean device milliseconds of one fn(): `calls` back-to-back calls
+    captured in one CUDA graph, replayed `reps` times, CUDA events. The
+    host's launch cost, as long as a kernel of a few microseconds, stays
+    out of the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps) / calls
 
 
 # ------------------------------------------------------------ signatures
@@ -295,6 +331,61 @@ def check_flash(shape, seed):
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def check_dot(case, dt, seed):
+    """Blocked dot vs its plain version on the card at one probe case
+    (int8 bit for bit), a 3-link chain captured in a CUDA graph vs the
+    same links run eagerly (bit for bit), and the four times per dot. The
+    library yardstick is torch._int_mm (int8) or torch.mm with an f32
+    output (bf16)."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.tools import microbench_int8 as mb
+
+    name, m, k, n, bm, bn = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if dt == "int8":
+        x, w = mb.rand_int8(gen, (m, k)), mb.rand_int8(gen, (k, n))
+    else:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    wp = bd.pack_dot_weight(w)
+    got = bd.blocked_dot(x, wp, bm, bn)
+    want = bd.blocked_dot_plain(x, w)
+    torch.cuda.synchronize()
+    diff = (got.double() - want.double()).abs()
+    err = {"max_abs": diff.max().item(),
+           "max_rel": diff.max().item() / want.double().abs().max().item()}
+    if dt == "int8":
+        ok = torch.equal(got, want)
+    else:
+        ok = bool((diff <= TOL_DOT_ABS + TOL_DOT_REL * want.double().abs()).all())
+    if not ok:
+        raise AssertionError(f"blocked dot {name} {dt}: kernel vs plain {err}")
+    del got, want, diff
+
+    dot = mb.kernel_dot(w, bm, bn)
+    eager = mb.run_chain(dot, x, 3)
+    mb.warm_up(dot, x)
+    graph, _, out = mb.capture_chain(dot, x, 3)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, eager):
+        raise AssertionError(f"blocked dot {name} {dt}: captured 3-link chain != eager chain")
+    del graph, out, eager
+
+    ms = graph_ms(lambda: bd.blocked_dot(x, wp, bm, bn))
+    plain_ms = graph_ms(lambda: bd.blocked_dot_plain(x, w))
+    if dt == "int8":
+        library_ms = graph_ms(lambda: torch._int_mm(x, w))
+    else:
+        library_ms = graph_ms(lambda: torch.mm(x, w, out_dtype=torch.float32))
+    b_s, b_by = mb.dot_bound(m, k, n, dt)
+    return {"signature": f"{name} {dt} {m}x{k}x{n}", "case": name, "dtype": dt,
+            "errors": {"out": err}, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_s * 1e3, "bound_by": b_by}
+
+
 # ------------------------------------------------------------- the slice
 
 
@@ -374,6 +465,7 @@ def run_path(name, config, expected, cube, profile):
     and the launch signatures it recorded."""
     import torch
 
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
 
@@ -382,6 +474,7 @@ def run_path(name, config, expected, cube, profile):
     # the counted main-path run, which also records the launch signatures
     fc.LAUNCHES = 0
     fa.LAUNCHES = 0
+    bd.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     with recording(fused_calls, flash_calls):
         out = pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(2))
@@ -394,8 +487,9 @@ def run_path(name, config, expected, cube, profile):
         raise AssertionError(f"[{name}] {recorded} kernel calls per cube, expected {expected}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[{name}] main path: {launches} kernel launches, peak memory {peak_gib:.2f} GiB")
-    if launches != expected:
-        raise AssertionError(f"[{name}] {launches} launches in the main-path run, expected {expected}")
+    if launches != expected or bd.LAUNCHES:
+        raise AssertionError(f"[{name}] {launches}, {bd.LAUNCHES} blocked-dot launches in the "
+                             f"main-path run, expected {expected} and none")
     if tuple(out.shape) != CUBE or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"[{name}] cube {tuple(out.shape)} or non-finite values")
     lo, hi = out.min().item(), out.max().item()
@@ -449,11 +543,57 @@ def run_path(name, config, expected, cube, profile):
     return report, fused_calls, flash_calls
 
 
+def run_probe():
+    """The int8 probe's main path: the launch counts set to 0, the probe
+    run once, the exact counts read. Each case and dtype makes one eager
+    warm-up link and captures CHAIN links, which the Python counts see;
+    the card runs the warm-up link and the captured links once per input.
+    Both paths' int8 chains sum exactly, so their last links' sums must
+    agree exactly after CHAIN links."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.tools import microbench_int8 as mb
+
+    fc.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    bd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows = mb.probe(torch.device("cuda"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counted = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
+    expected = {FUSED: 0, FLASH: 0, DOT: len(mb.CASES) * len(mb.DTYPES) * (1 + mb.CHAIN)}
+    if counted != expected:
+        raise AssertionError(f"[{PROBE}] {counted} counted launches, expected {expected}")
+    per_chain = 1 + mb.N_X * mb.CHAIN
+    for r in rows:
+        if r["launches"] != (per_chain if r["path"] == "cuda" else 0):
+            raise AssertionError(f"[{PROBE}] {r['case']} {r['path']} {r['dtype']}: "
+                                 f"{r['launches']} blocked-dot launches, expected {per_chain}")
+        log(f"[{PROBE}] {r['case']:<20} {r['path']:<7} {r['dtype']:<4} us/dot "
+            f"{r['us_per_dot']:8.3f} bound {r['bound_us']:.3f} TOP/s {r['achieved_TOPs']:7.2f} "
+            f"launches {r['launches']} sum {r['checksum']}")
+    for name, *_ in mb.CASES:
+        sums = {r["path"]: r["checksum"] for r in rows if r["case"] == name and r["dtype"] == "int8"}
+        if sums["cuda"] != sums["library"]:
+            raise AssertionError(f"[{PROBE}] {name} int8: kernel chain sum {sums['cuda']} != "
+                                 f"library chain sum {sums['library']}")
+    launches = {FUSED: 0, FLASH: 0, DOT: sum(r["launches"] for r in rows)}
+    log(f"[{PROBE}] main path: {launches} kernel launches ({counted} counted in Python: "
+        f"warm-up and captured links), {secs:.1f} s")
+    return {"chain": mb.CHAIN, "seconds": secs, "launches": launches,
+            "counted_in_python": counted, "rows": rows}
+
+
 def kernel_entry(name, source, replaces, rows, launches):
     """The kernels-line entry: times summed over the counted main-path
-    runs (launches of each signature x time per launch), per path too."""
+    runs (launches of each signature x time per launch), per path too.
+    ``launches`` maps each path that runs the kernel to its count."""
     paths = {}
-    for path in PATHS:
+    for path in launches:
         n = {k: sum(r["counts"][path] * r[k] for r in rows)
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         paths[path] = dict(launches=launches[path], **n)
@@ -484,6 +624,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from hsi_dmgasr_tpu_torch.kernels import build
+    from hsi_dmgasr_tpu_torch.tools import microbench_int8 as mb
 
     t_script = time.perf_counter()
     card = card_line()
@@ -513,6 +654,7 @@ def main():
         for sigs, calls in ((fused_sigs, fused_calls), (flash_sigs, flash_calls)):
             for sig, n in calls.items():
                 sigs.setdefault(sig, dict.fromkeys(PATHS, 0))[path] = n
+    report["paths"][PROBE] = probe = run_probe()
 
     # ---- 4. each kernel vs its plain version, and timings, per signature
     fused_rows = []
@@ -537,7 +679,20 @@ def main():
             f"{err['max_rel']:.2e} | ms {row['ms']:.3f} plain {row['plain_ms']:.3f} "
             f"sdpa {row['library_ms']:.3f} bound {row['bound_ms']:.3f} ({row['bound_by']})")
         torch.cuda.empty_cache()
+    dot_rows = []
+    for i, (case, dt) in enumerate((c, dt) for c in mb.CASES for dt in ("int8", "bf16")):
+        row = check_dot(case, dt, seed=300 + i)
+        chains = {r["path"]: r for r in probe["rows"] if r["case"] == case[0] and r["dtype"] == dt}
+        row["counts"] = {PROBE: chains["cuda"]["launches"]}
+        row["chain_us_per_dot"] = {p: r["us_per_dot"] for p, r in chains.items()}
+        dot_rows.append(row)
+        err = row["errors"]["out"]
+        log(f"dot {row['signature']:<40} abs {err['max_abs']:.2e} rel {err['max_rel']:.2e} | us "
+            f"{row['ms'] * 1e3:.3f} plain {row['plain_ms'] * 1e3:.3f} library "
+            f"{row['library_ms'] * 1e3:.3f} bound {row['bound_ms'] * 1e3:.3f} ({row['bound_by']}) "
+            f"| chain us/dot {row['chain_us_per_dot']}")
     report["fused_signatures"], report["flash_signatures"] = fused_rows, flash_rows
+    report["dot_signatures"] = dot_rows
     for path in PATHS:
         levels = {}
         for r in fused_rows:
@@ -567,20 +722,23 @@ def main():
         kernel_entry(FLASH, "hsi_dmgasr_tpu_torch/csrc/flash_attention.cu",
                      "hsi_dmgasr_tpu/kernels/flash_attention.py:119", flash_rows,
                      launches(FLASH)),
+        kernel_entry(DOT, "hsi_dmgasr_tpu_torch/csrc/blocked_dot.cu",
+                     "tools/microbench_int8.py:88", dot_rows,
+                     {PROBE: probe["launches"][DOT]}),
     ]
     for e in entries:
         for path, p in e["paths"].items():
-            log(f"[{path}] {e['name']} per cube: {p['launches']} launches, kernel "
+            log(f"[{path}] {e['name']} per counted run: {p['launches']} launches, kernel "
                 f"{p['ms']:.3f} ms, bound {p['bound_ms']:.3f}, plain {p['plain_ms']:.3f}, "
                 f"library {p['library_ms']:.3f}")
     report["kernels"] = entries
     if args.profile:
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:
-            json.dump({p: r.pop("profile") for p, r in report["paths"].items()}, f, indent=1)
+            json.dump({p: report["paths"][p].pop("profile") for p in PATHS}, f, indent=1)
     report["script_s"] = time.perf_counter() - t_script
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    log("kernel times are summed over the counted runs of both paths: launches of each "
+    log("kernel times are summed over the counted run of each path: launches of each "
         "signature x time per launch")
     log(f"script seconds: {report['script_s']:.1f}")
     log(card)

@@ -89,8 +89,9 @@ def test_port_imports_no_jax():
     flax or the JAX package."""
     files = sorted((ROOT / "hsi_dmgasr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    for kernel in ("fused_conv", "flash_attention"):
+    for kernel in ("fused_conv", "flash_attention", "blocked_dot"):
         assert ROOT / "hsi_dmgasr_tpu_torch" / "kernels" / f"{kernel}.py" in files
+    assert ROOT / "hsi_dmgasr_tpu_torch" / "tools" / "microbench_int8.py" in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in _FORBIDDEN]
     assert not bad, bad

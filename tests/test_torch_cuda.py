@@ -15,14 +15,18 @@ kernel's ex2.approx against exp, and so a rare one-ulp flip of a bf16 p:
 atol 1e-3, rtol 1e-2. The outputs are weighted means of unit-variance
 values, typically 0.01-0.1 here, and the kernel has differed by at most
 about 1e-4 at the main path's shape on an H100. The peaked softmax,
-whose outputs are near 1, keeps atol 1e-2 (see its docstring).
+whose outputs are near 1, keeps atol 1e-2 (see its docstring). The
+blocked dot's int8 sums are exact int32 and are held bit for bit; its
+bf16 sums are f32 in another order than the plain version's float64,
+on outputs of about sqrt(K) = 14-24: atol 1e-3, rtol 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from hsi_dmgasr_tpu_torch.kernels import attention, flash_attention, fused_conv
+from hsi_dmgasr_tpu_torch.kernels import attention, blocked_dot, flash_attention, fused_conv
+from hsi_dmgasr_tpu_torch.tools import microbench_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -159,3 +163,54 @@ def test_gate_launches_the_kernel_on_the_card(dev):
     q, k, v = _qkv(1, 1024, 1, 512, dev, seed=3)
     attention.spatial_attention(q, k, v, 1.0 / np.sqrt(512))
     assert flash_attention.LAUNCHES == n0 + 1
+
+
+# the int8 probe's cases (M, K, N, bm, bn), and a ragged K tail of one MMA
+# step and edge tiles that the kernel masks (M = 96, N = 200)
+DOT_CASES = [c[1:] for c in microbench_int8.CASES] + [(96, 96, 200, 32, 8)]
+
+
+def _dot_operands(m, k, n, dtype, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.int8:
+        return (microbench_int8.rand_int8(gen, (m, k)), microbench_int8.rand_int8(gen, (k, n)))
+    return (torch.randn((m, k), generator=gen, device=dev).to(dtype),
+            torch.randn((k, n), generator=gen, device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,bm,bn", DOT_CASES)
+def test_blocked_dot_matches_plain(dev, m, k, n, bm, bn, dtype):
+    x, w = _dot_operands(m, k, n, dtype, dev)
+    want = blocked_dot.blocked_dot_plain(x, w)
+    n0 = blocked_dot.LAUNCHES
+    got = blocked_dot.blocked_dot(x, blocked_dot.pack_dot_weight(w), bm, bn)
+    torch.cuda.synchronize()
+    assert blocked_dot.LAUNCHES == n0 + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_captured_chain_matches_eager(dev, dtype):
+    """Three links captured in a CUDA graph and replayed against the same
+    links run eagerly: one kernel, so the same bits."""
+    _, m, k, n, bm, bn = microbench_int8.CASES[1]   # K > N: the zero-pad link
+    x, w = _dot_operands(m, k, n, dtype, dev, seed=1)
+    dot = microbench_int8.kernel_dot(w, bm, bn)
+    eager = microbench_int8.run_chain(dot, x, 3)
+    microbench_int8.warm_up(dot, x)
+    n0 = blocked_dot.LAUNCHES
+    graph, static_x, out = microbench_int8.capture_chain(dot, x, 3)
+    assert blocked_dot.LAUNCHES == n0 + 3
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x2, _ = _dot_operands(m, k, n, dtype, dev, seed=2)
+    static_x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, microbench_int8.run_chain(dot, x2, 3))
