@@ -44,7 +44,9 @@ In order:
  4. for each recorded signature, on the card at that shape (B=9): kernel
     vs its plain PyTorch version (asserted within tolerance), the
     kernel's, the plain version's and one library call's times, and the
-    bound; the flash kernel also at D=128 and at D=512 (S >= 8192); the
+    bound; for the fused Block also its launch alone, replayed in a CUDA
+    graph, and each signature's and level's share of its bound and ratio
+    to cuDNN; the flash kernel also at D=128 and at D=512 (S >= 8192); the
     blocked dot at each probe case and dtype, and a 3-link captured
     chain against the same chain run eagerly;
  5. the unfused UNet against the reference torch golden
@@ -253,8 +255,41 @@ def bound(sig):
     return pick_bound(nbytes, 2 * pix * cout * ct * (9 + proj))
 
 
+def bare_launch(fc, args, kw, packed):
+    """A function that relaunches the fused kernel alone on the current
+    stream, with the arguments the wrapper gave it for this call (its
+    outputs are overwritten): the kernel's device time without the
+    wrapper's host work and GroupNorm fold, which the wrapper's own time
+    includes and which sets it at the small levels."""
+    import torch
+
+    real, rec = fc._entry, {}
+
+    def recording_entry():
+        fn = real()
+
+        def call(*a):
+            rec["fn"], rec["args"] = fn, a
+            return fn(*a)
+        return call
+
+    fc._entry = recording_entry
+    try:
+        keep = fc.gn_swish_conv3x3(*args, packed=packed, **kw)
+    finally:
+        fc._entry = real
+    fn, cargs = rec["fn"], rec["args"]
+
+    def launch():
+        rc = fn(*cargs[:-1], torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused kernel launch failed: cudaError {rc}")
+    launch.keep = (keep, args, kw, packed)  # the buffers the launch writes and reads
+    return launch
+
+
 def check_signature(sig, seed):
-    """Fused kernel vs plain version on the card, and the four times."""
+    """Fused kernel vs plain version on the card, and the five times."""
     import torch
     import torch.nn.functional as F
 
@@ -283,6 +318,7 @@ def check_signature(sig, seed):
     del got, want
 
     ms = cuda_ms(lambda: fc.gn_swish_conv3x3(*args, packed=packed, **kw), reps=5)
+    kernel_ms = graph_ms(bare_launch(fc, args, kw, packed))
     plain_ms = cuda_ms(lambda: fc.gn_swish_conv3x3_plain(*args, **kw), reps=2)
     # yardstick only: one cuDNN bf16 conv on the pre-activated input
     scale, shift = fc.gn_scale_shift(args[0], args[1], args[2], kw.get("x2"),
@@ -296,7 +332,9 @@ def check_signature(sig, seed):
     b_ms, b_by = bound(sig)
     return {"signature": describe(sig), "level": f"{sig[0][1]}x{sig[0][2]}",
             "errors": errs, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "kernel_ms": kernel_ms, "bound_frac": b_ms / ms, "vs_library": ms / library_ms,
+            "kernel_bound_frac": b_ms / kernel_ms}
 
 
 def check_flash(shape, seed):
@@ -665,8 +703,10 @@ def main():
         e = row["errors"]
         log(f"{row['signature']:<48} {counts} " + " ".join(
             f"{k} abs {v['max_abs']:.2e} rel {v['max_rel']:.2e}" for k, v in e.items())
-            + f" | ms {row['ms']:.3f} plain {row['plain_ms']:.3f} cudnn {row['library_ms']:.3f}"
-            f" bound {row['bound_ms']:.3f} ({row['bound_by']})")
+            + f" | ms {row['ms']:.3f} kernel alone {row['kernel_ms']:.3f} plain "
+            f"{row['plain_ms']:.3f} cudnn {row['library_ms']:.3f} bound {row['bound_ms']:.3f} "
+            f"({row['bound_by']}) of bound {row['bound_frac']:.3f} (kernel alone "
+            f"{row['kernel_bound_frac']:.3f}) x cudnn {row['vs_library']:.2f}")
         torch.cuda.empty_cache()
     flash_rows = []
     extra = {shape: dict.fromkeys(PATHS, 0) for shape in FLASH_EXTRA}
@@ -697,16 +737,19 @@ def main():
         levels = {}
         for r in fused_rows:
             lv = levels.setdefault(r["level"], dict.fromkeys(
-                ("launches", "ms", "bound_ms", "plain_ms", "library_ms"), 0))
+                ("launches", "ms", "kernel_ms", "bound_ms", "plain_ms", "library_ms"), 0))
             n = r["counts"][path]
             lv["launches"] += n
-            for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            for key in ("ms", "kernel_ms", "bound_ms", "plain_ms", "library_ms"):
                 lv[key] += r[key] * n
         report["paths"][path]["fused_levels"] = levels
         for name, lv in levels.items():
+            lv["bound_frac"] = lv["bound_ms"] / lv["ms"]
+            lv["vs_library"] = lv["ms"] / lv["library_ms"]
             log(f"[{path}] fused per cube at {name}: {lv['launches']} launches, kernel "
-                f"{lv['ms']:.3f} ms, bound {lv['bound_ms']:.3f}, plain {lv['plain_ms']:.3f}, "
-                f"cudnn {lv['library_ms']:.3f}")
+                f"{lv['ms']:.3f} ms (alone {lv['kernel_ms']:.3f}), bound {lv['bound_ms']:.3f}, "
+                f"plain {lv['plain_ms']:.3f}, cudnn {lv['library_ms']:.3f}, of bound "
+                f"{lv['bound_frac']:.3f}, x cudnn {lv['vs_library']:.2f}")
 
     # ---- 5. golden
     report["golden_max_abs"] = golden_check()

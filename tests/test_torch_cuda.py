@@ -87,6 +87,11 @@ CASES = [
     ((1, 8, 16, 32, 0, 64), "stats+tb"),        # warp spans two rows
     ((2, 4, 32, 96, 0, 128), "tb+proj+stats"),  # two N tiles, 3 K chunks
     ((1, 4, 128, 64, 64, 64), "res+stats+proj"),
+    ((1, 6, 40, 64, 0, 320), "tb+stats"),       # 128-wide N tiles, ragged third
+    ((1, 5, 260, 64, 0, 64), "tb+res+stats"),   # two rows per CTA, odd H, W > 128
+    ((2, 7, 140, 64, 0, 3), "stats_in+stats"),  # thin Cout=3 tile, two W segments
+    ((1, 4, 16, 1024, 0, 128), "tb+proj+stats"),  # a 32-chunk K loop
+    ((1, 3, 136, 128, 64, 64), "tb+stats+proj"),  # the 512^2 up-block source split
 ]
 
 
