@@ -46,7 +46,9 @@ In order:
     kernel's, the plain version's and one library call's times, and the
     bound; for the fused Block also its launch alone, replayed in a CUDA
     graph, and each signature's and level's share of its bound and ratio
-    to cuDNN; the flash kernel also at D=128 and at D=512 (S >= 8192); the
+    to cuDNN; the flash kernel also at D=128 and at D=512 (S >= 8192) and
+    at pavia_x4_r3's 64^2 attention, each flash shape with the prepass's
+    device time (torch.profiler) and the einsum route's time beside it; the
     blocked dot at each probe case and dtype, and a 3-link captured
     chain against the same chain run eagerly;
  5. the unfused UNet against the reference torch golden
@@ -88,8 +90,10 @@ PATHS = {
     "pavia_x4": ("pavia_x4.json", {FUSED: 1100, FLASH: 100}),
 }
 # flash checks beside the path's own shape: D=128 (two heads) and D=512
-# with a ragged S, both past the 8192-token gate
-FLASH_EXTRA = ((9, 16384, 2, 128), (4, 8200, 1, 512))
+# with a ragged S, both past the 8192-token gate, and pavia_x4_r3's 64^2
+# attention (4096 tokens, D=512), which the gate keeps on the einsum path:
+# its row times both routes, for the gate's crossover
+FLASH_EXTRA = ((9, 16384, 2, 128), (4, 8200, 1, 512), (9, 4096, 1, 512))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -337,13 +341,40 @@ def check_signature(sig, seed):
             "kernel_bound_frac": b_ms / kernel_ms}
 
 
+def flash_kernel_ms(fn, reps=5):
+    """Mean device milliseconds of one launch of the flash wrapper's bf16
+    prepass (kernels named to_bf16*; 0 where there is none) and of its
+    attention kernel (flash_*), from torch.profiler over `reps` calls,
+    with the launches of each it saw."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = {"to_bf16": [], "flash_": []}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for key, times in seen.items():
+                if key in e.name:
+                    times.append(e.time_range.elapsed_us() / 1e3)
+    return {key: (sum(t) / len(t) if t else 0.0, len(t)) for key, t in seen.items()}
+
+
 def check_flash(shape, seed):
     """Flash kernel vs plain version on the card, on strided q, k, v views
-    of one qkv tensor as the UNet makes them, and the four times. The
-    library yardstick is one scaled_dot_product_attention on bf16 copies."""
+    of one qkv tensor as the UNet makes them, and the four times, the
+    prepass's share and the einsum route's time (attention.py's matmul
+    path, f32). The library yardstick is one scaled_dot_product_attention
+    on bf16 copies."""
     import torch
     import torch.nn.functional as F
 
+    from hsi_dmgasr_tpu_torch.kernels import attention as attn
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
 
     b, s, h, d = shape
@@ -360,13 +391,20 @@ def check_flash(shape, seed):
     del got, want, diff
 
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale), reps=5)
+    split = flash_kernel_ms(lambda: fa.flash_attention(q, k, v, scale))
+    (pre_ms, n_pre), (attn_ms, n_attn) = split["to_bf16"], split["flash_"]
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale), reps=2)
+    einsum_ms = cuda_ms(lambda: attn._einsum_attention(q, k, v, scale), reps=3)
     qb, kb, vb = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, scale=scale), reps=5)
     del qb, kb, vb
-    b_ms, b_by = pick_bound(4 * 4 * b * s * h * d, 4 * b * h * s * s * d)
+    flops = 4 * b * h * s * s * d
+    b_ms, b_by = pick_bound(4 * 4 * b * s * h * d, flops)
     return {"signature": f"B={b} S={s} H={h} D={d}", "errors": {"out": err}, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "prepass_ms": pre_ms, "prepass_share": pre_ms / ms, "attention_kernel_ms": attn_ms,
+            "profiled_launches": {"prepass": n_pre, "attention": n_attn},
+            "einsum_ms": einsum_ms, "tflops": flops / ms / 1e9}
 
 
 def check_dot(case, dt, seed):
@@ -460,9 +498,21 @@ def golden_check():
     return err
 
 
+def union_ms(spans):
+    """Milliseconds covered by the union of (start, end) intervals in
+    microseconds: the time the device ran anything, each moment once."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
 def profile_cube(pipe, cube):
-    """One traced cube: device time by kernel name, idle share, and the
-    host-clock seconds of each stage (each ends in a synchronize)."""
+    """One traced cube: device time by kernel name, the device's busy time
+    (the union of its kernel, copy and memset intervals) and idle share,
+    and the host-clock seconds of each stage (each ends in a synchronize)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -474,12 +524,13 @@ def profile_cube(pipe, cube):
         pipe.super_resolve(cube, generator=gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, spans = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    busy_ms = sum(ms for ms, _ in by_name.values())
+            spans.append((e.time_range.start, e.time_range.end))
+    busy_ms = union_ms(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
 
     stages = {}
@@ -716,8 +767,11 @@ def main():
         flash_rows.append(row)
         err = row["errors"]["out"]
         log(f"flash {row['signature']:<30} {counts} abs {err['max_abs']:.2e} rel "
-            f"{err['max_rel']:.2e} | ms {row['ms']:.3f} plain {row['plain_ms']:.3f} "
-            f"sdpa {row['library_ms']:.3f} bound {row['bound_ms']:.3f} ({row['bound_by']})")
+            f"{err['max_rel']:.2e} | ms {row['ms']:.3f} ({row['tflops']:.1f} TFLOP/s; prepass "
+            f"{row['prepass_ms']:.3f} ms, {row['prepass_share']:.3f} of it; attention kernel "
+            f"{row['attention_kernel_ms']:.3f}; profiled {row['profiled_launches']}) plain "
+            f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
+            f"einsum {row['einsum_ms']:.3f} bound {row['bound_ms']:.3f} ({row['bound_by']})")
         torch.cuda.empty_cache()
     dot_rows = []
     for i, (case, dt) in enumerate((c, dt) for c in mb.CASES for dt in ("int8", "bf16")):

@@ -103,11 +103,37 @@ def load_jax_params(module, flax_params):
     return module
 
 
-def load_state_dict(module, state_dict):
+def load_state_dict(module, state_dict, strict=True):
     """Load a reference-layout state_dict (tensors or arrays) as it is; a
-    ``denoise_fn.`` prefix (diffusion checkpoints) is dropped."""
+    ``denoise_fn.`` prefix (diffusion checkpoints) is dropped.
+
+    ``strict=False`` merges as the JAX package's ``load_torch_resume``
+    does: the module keeps its own leaf wherever the state_dict has no
+    key or a leaf of another shape, and keys the module lacks are
+    ignored."""
     sd = {re.sub(r"^denoise_fn\.", "", k):
           v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
           for k, v in state_dict.items()}
+    if not strict:
+        own = module.state_dict()
+        sd = {k: sd[k] if k in sd and tuple(sd[k].shape) == tuple(v.shape) else v
+              for k, v in own.items()}
     module.load_state_dict(sd)
     return module
+
+
+def unflatten_npz(path):
+    """An ``export_params_npz`` file (flattened ``/`` keys, float16
+    leaves) -> nested dicts of float32 arrays."""
+    tree = {}
+    with np.load(path) as z:
+        for key in z.files:
+            arr = z[key]
+            if np.issubdtype(arr.dtype, np.floating):
+                arr = arr.astype(np.float32)
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = arr
+    return tree

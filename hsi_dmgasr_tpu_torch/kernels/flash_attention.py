@@ -11,7 +11,9 @@ Device side: ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a, bound with
 ctypes). ``flash_attention`` launches it for CUDA tensors and raises on
 what it does not take; for CPU tensors it runs ``flash_attention_plain``,
 the same function in plain PyTorch, blocked over ``BLOCK_K`` keys as the
-JAX kernel is. ``LAUNCHES`` counts kernel launches.
+JAX kernel is. ``LAUNCHES`` counts calls of the kernel's C entry, which
+at D = 128 and 256 runs a bf16 prepass into a scratch buffer that the
+wrapper allocates (3 x B*H*S*D bf16) before the attention kernel.
 
 Shapes: q, k, v are (B, S, H, D), possibly strided views (the UNet's
 qkv split); returns a contiguous (B, S, H, D).
@@ -30,6 +32,7 @@ LAUNCHES = 0
 BLOCK_K = 512        # keys per block of the plain version (the JAX kernel's)
 _NEG_INF = -1e30
 HEAD_DIMS = (128, 256, 384, 512)   # what the kernel takes: D % 128 == 0, up to 512
+BF16_HEAD_DIMS = (128, 256)        # the head dims whose kernel reads a bf16 scratch
 
 
 def _bf16(t):
@@ -64,7 +67,7 @@ def _entry():
     fn = lib.hsi_flash_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -96,12 +99,15 @@ def _launch(q, k, v, scale):
                and all(st % 4 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1),
                f"{name} rows must be 16-byte aligned")
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    scratch = (torch.empty((3, b * h, s, d), dtype=torch.bfloat16, device=q.device)
+               if d in BF16_HEAD_DIMS else None)
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                b, s, h, d, float(scale), stream)
+                b, s, h, d, float(scale),
+                None if scratch is None else scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

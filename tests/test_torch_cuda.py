@@ -115,10 +115,14 @@ def test_kernel_rejects_unaligned_channels(dev):
 
 FLASH_CASES = [
     (2, 300, 1, 128),   # ragged S: a masked last K tile and unstored Q rows
-    (1, 200, 2, 256),   # multi-head, two column slices
-    (1, 130, 1, 384),
-    (2, 70, 1, 512),    # four column slices
-    (1, 64, 3, 128),    # one tile exactly
+    (1, 200, 2, 256),   # multi-head
+    (1, 130, 1, 384),   # the f32-staged body: two column slices
+    (2, 70, 1, 512),
+    (1, 64, 3, 128),    # one K/V tile exactly
+    (1, 8200, 1, 256),  # S a multiple of neither 64 nor 128: a ragged last tile
+    (1, 40, 2, 128),    # S < 64: one partial K/V tile, one partial Q tile
+    (2, 300, 3, 256),   # B*H = 6 over strided views with H > 1
+    (1, 128, 1, 256),   # one Q tile and two K/V tiles exactly
 ]
 
 
@@ -141,12 +145,13 @@ def test_flash_matches_plain(dev, shape):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-2)
 
 
-def test_flash_peaked_softmax(dev):
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_peaked_softmax(dev, d):
     """Large logits: the running max moves across tiles and most p round
     to zero. The outputs are then single rows of v, |out| about 0.8, and
     a one-ulp bf16 flip of a p near 1/2 moves one by up to 2^-9 |v|
     (2.9e-3 on an H100): atol = rtol = 1e-2."""
-    q, k, v = _qkv(1, 500, 1, 128, dev, seed=1)
+    q, k, v = _qkv(1, 500, 1, d, dev, seed=1)
     want = flash_attention.flash_attention_plain(q * 8, k, v, 1.0)
     got = flash_attention.flash_attention(q * 8, k, v, 1.0)
     torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
