@@ -49,8 +49,9 @@ In order:
     to cuDNN; the flash kernel also at D=128 and at D=512 (S >= 8192) and
     at pavia_x4_r3's 64^2 attention, each flash shape with the prepass's
     device time (torch.profiler) and the einsum route's time beside it; the
-    blocked dot at each probe case and dtype, and a 3-link captured
-    chain against the same chain run eagerly;
+    blocked dot at each probe case and dtype, with its share of the bound,
+    TOP/s and ratio to the library call, and a 3-link captured chain
+    against the same chain run eagerly;
  5. the unfused UNet against the reference torch golden
     (tests/golden/unet_diffusion_golden.npz);
  6. prints the card line, the kernels JSON line and, last, the result
@@ -410,9 +411,12 @@ def check_flash(shape, seed):
 def check_dot(case, dt, seed):
     """Blocked dot vs its plain version on the card at one probe case
     (int8 bit for bit), a 3-link chain captured in a CUDA graph vs the
-    same links run eagerly (bit for bit), and the four times per dot. The
+    same links run eagerly (bit for bit), the four times per dot, and the
+    kernel's share of its bound, TOP/s and ratio to the library call. The
     library yardstick is torch._int_mm (int8) or torch.mm with an f32
-    output (bf16)."""
+    output (bf16). graph_ms replays 20 calls on the same operands, which
+    then sit in the L2: the HBM byte bound is a yardstick there, not a
+    ceiling."""
     import torch
 
     from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
@@ -459,7 +463,8 @@ def check_dot(case, dt, seed):
     b_s, b_by = mb.dot_bound(m, k, n, dt)
     return {"signature": f"{name} {dt} {m}x{k}x{n}", "case": name, "dtype": dt,
             "errors": {"out": err}, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_s * 1e3, "bound_by": b_by}
+            "bound_ms": b_s * 1e3, "bound_by": b_by, "bound_frac": b_s * 1e3 / ms,
+            "tops": 2 * m * k * n / ms / 1e9, "vs_library": ms / library_ms}
 
 
 # ------------------------------------------------------------- the slice
@@ -784,7 +789,8 @@ def main():
         log(f"dot {row['signature']:<40} abs {err['max_abs']:.2e} rel {err['max_rel']:.2e} | us "
             f"{row['ms'] * 1e3:.3f} plain {row['plain_ms'] * 1e3:.3f} library "
             f"{row['library_ms'] * 1e3:.3f} bound {row['bound_ms'] * 1e3:.3f} ({row['bound_by']}) "
-            f"| chain us/dot {row['chain_us_per_dot']}")
+            f"of bound {row['bound_frac']:.3f} TOP/s {row['tops']:.1f} x library "
+            f"{row['vs_library']:.2f} | chain us/dot {row['chain_us_per_dot']}")
     report["fused_signatures"], report["flash_signatures"] = fused_rows, flash_rows
     report["dot_signatures"] = dot_rows
     for path in PATHS:

@@ -5,8 +5,9 @@ Port of ``tools/microbench_int8.py:pallas_dot``'s kernel (``kern``, the
 of an x row block and a w column block, so the function is the whole
 product, summed in int32 for int8 operands (exact) and in f32 for bf16.
 
-Device side: ``csrc/blocked_dot.cu`` (CUDA C++ for sm_90a, mma.sync,
-bound with ctypes). It reads w packed K-major, ``pack_dot_weight(w)``,
+Device side: ``csrc/blocked_dot.cu`` (CUDA C++ for sm_90a, ``wgmma`` fed
+by a TMA ring, bound with ctypes). It reads w packed K-major,
+``pack_dot_weight(w)``, the layout ``wgmma`` takes for 8-bit operands,
 done once outside a chain as the JAX package packs conv weights.
 ``blocked_dot`` launches it for CUDA tensors and raises on what it does
 not take; for CPU tensors it runs ``blocked_dot_plain``. ``LAUNCHES``

@@ -175,9 +175,19 @@ def test_gate_launches_the_kernel_on_the_card(dev):
     assert flash_attention.LAUNCHES == n0 + 1
 
 
-# the int8 probe's cases (M, K, N, bm, bn), and a ragged K tail of one MMA
-# step and edge tiles that the kernel masks (M = 96, N = 200)
-DOT_CASES = [c[1:] for c in microbench_int8.CASES] + [(96, 96, 200, 32, 8)]
+# the int8 probe's cases (M, K, N, bm, bn); a ragged K tail of one MMA step
+# and edge tiles that the kernel masks (M = 96, N = 200); K of one MMA step;
+# K deeper than the ring, its last 128-byte box partial; N = 7, whose 4-byte
+# output rows are not 16-byte aligned; M = 200 over several row tiles, the
+# last partial; a wide N
+DOT_CASES = [c[1:] for c in microbench_int8.CASES] + [
+    (96, 96, 200, 32, 8),
+    (128, 32, 64, 128, 64),
+    (256, 1056, 128, 256, 128),
+    (64, 64, 7, 64, 7),
+    (200, 128, 128, 8, 128),
+    (512, 512, 1024, 512, 1024),
+]
 
 
 def _dot_operands(m, k, n, dtype, dev, seed=0):
