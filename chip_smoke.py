@@ -6,20 +6,26 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives three main paths. Two are x4 DMGASR on a
+checkout. It drives four main paths. Three are x4 DMGASR on a
 512x512x102 Pavia-geometry cube at full width (UNet inner 64, mults
 1,2,4,8,8, res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16,
 n_ovls 4, n_feats 64, G=9; seeded random weights):
 
   * configs/pavia_x4_r3.json: image_size 128, the chain entered at
     t_start=4, latent affine; attention at 64^2 and 32^2 stays below the
-    flash gate. 220 fused-Block launches per cube.
+    flash gate. f32 activations. 220 fused-Block launches per cube.
   * configs/pavia_x4.json: image_size 64, the full T=20 chain, no affine;
     attention at the 128^2 level (16384 tokens, D=256) goes to the flash
-    kernel, 5 layers per UNet forward. 100 flash and 1100 fused-Block
-    launches per cube.
+    kernel, 5 layers per UNet forward. f32 activations. 100 flash and 1100
+    fused-Block launches per cube.
+  * bench_x4_bf16: the port's flagship bench (hsi_dmgasr_tpu_torch/bench.py)
+    at its defaults: image_size 512, bf16 weights and activations, fused
+    Blocks; attention only in the mid block (32^2, below the gate). Its
+    two rows, the t_start=4 cube and the full T=20 chain, launch 220 and
+    1100 fused Blocks and no flash; it prints the bench's JSON line (both
+    cube times, the UNet step's roofline share).
 
-The third is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
+The fourth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
 
   * int8_probe: chains of 4000 dependent dots x @ w with a requantize
     step, at M = 4096 and (K, N) = (512, 512), (576, 256), (192, 256),
@@ -33,21 +39,23 @@ In order:
  1. prints the card (nvidia-smi name and power limit) and versions;
  2. builds every CUDA kernel of the port from csrc/ (one nvcc each, all
     at once) and prints the build seconds and register use;
- 3. for each Pavia path: sets the launch counts to 0, drives it once
-    while recording every launch signature of both kernels, checks the
-    cube (shape, finite, in [0, 1]) and the exact launch counts, times it
-    (median of 3) and reads the peak memory; holds one full-width UNet
-    forward with the kernels against the same forward with their plain
-    versions. Then the probe: counts to 0, the probe run once, the exact
-    launch counts, and the int8 chains of the kernel and the library
-    held equal bit for bit after 4000 links;
- 4. for each recorded signature, on the card at that shape (B=9): kernel
-    vs its plain PyTorch version (asserted within tolerance), the
+ 3. for each Pavia path and each bench row: sets the launch counts to 0,
+    drives one cube while recording every launch signature of both
+    kernels, checks the cube (shape, finite, in [0, 1]) and the exact
+    launch counts, times it (median of 3) and reads the peak memory; holds
+    one full-width UNet forward with the kernels against the same forward
+    with their plain versions (in bf16 for the bench). Then the probe:
+    counts to 0, the probe run once, the exact launch counts, and the int8
+    chains of the kernel and the library held equal bit for bit after 4000
+    links;
+ 4. for each recorded signature (f32 or bf16), on the card at that shape
+    (B=9): kernel vs its plain PyTorch version (asserted within tolerance), the
     kernel's, the plain version's and one library call's times, and the
     bound; for the fused Block also its launch alone, replayed in a CUDA
     graph, and each signature's and level's share of its bound and ratio
     to cuDNN; the flash kernel also at D=128 and at D=512 (S >= 8192) and
-    at pavia_x4_r3's 64^2 attention, each flash shape with the prepass's
+    at pavia_x4_r3's 64^2 attention, and at each of its shapes with bf16
+    q, k and v as well, each flash shape with the prepass's
     device time (torch.profiler) and the einsum route's time beside it; the
     blocked dot at each probe case and dtype, with its share of the bound,
     TOP/s and ratio to the library call, and a 3-link captured chain
@@ -58,13 +66,15 @@ In order:
     line {"ok": true, "device": {...}}.
 
 Details go to chiprun_out/chip_smoke.json. ``--profile`` adds one traced
-cube per path: device time by kernel name (torch.profiler), the device's
-idle share and the seconds of each stage (GAE encode, reverse chain, GAE
-decode), into chiprun_out/chip_smoke_profile.json.
+cube per path (the bench's t_start=4 row for bench_x4_bf16): device time
+by kernel name (torch.profiler), the device's idle share and the seconds
+of each stage (GAE encode, reverse chain, GAE decode), into
+chip_smoke_profile.json beside it.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -90,10 +100,18 @@ PATHS = {
     # 55 fused Blocks and 5 flash attentions per forward x T=20
     "pavia_x4": ("pavia_x4.json", {FUSED: 1100, FLASH: 100}),
 }
+# the bf16 flagship path, the port's bench at its defaults (512x512x102,
+# image_size 512, batch 1, bf16, fused): its two rows, each with its launches
+# per cube (55 fused Blocks per UNet forward; attention only in the mid
+# block, at 32^2, below the flash gate)
+BENCH, BENCH_FULL = "bench_x4_bf16", "bench_x4_bf16:full_chain"
+BENCH_PATHS = {BENCH: {FUSED: 220, FLASH: 0}, BENCH_FULL: {FUSED: 1100, FLASH: 0}}
+UNET_PATHS = (*PATHS, *BENCH_PATHS)
 # flash checks beside the path's own shape: D=128 (two heads) and D=512
 # with a ragged S, both past the 8192-token gate, and pavia_x4_r3's 64^2
 # attention (4096 tokens, D=512), which the gate keeps on the einsum path:
-# its row times both routes, for the gate's crossover
+# its row times both routes, for the gate's crossover. Each shape, and
+# pavia_x4's own, also with bf16 q, k and v, which no path launches.
 FLASH_EXTRA = ((9, 16384, 2, 128), (4, 8200, 1, 512), (9, 4096, 1, 512))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor FLOP/s
@@ -174,12 +192,13 @@ def recording(fused_calls, flash_calls):
         sig = (tuple(x.shape), 0 if x2 is None else x2.shape[-1], kernel.shape[-1],
                kw.get("time_bias") is not None, kw.get("residual") is not None,
                kw.get("stats_in") is not None, kw.get("stats_in2") is not None,
-               bool(kw.get("emit_stats")), kw.get("res_kernel") is not None)
+               bool(kw.get("emit_stats")), kw.get("res_kernel") is not None,
+               dtype_name(x.dtype))
         fused_calls[sig] = fused_calls.get(sig, 0) + 1
         return real_fused(x, gn_scale, gn_bias, kernel, bias, **kw)
 
     def rec_flash(q, k, v, scale):
-        sig = tuple(q.shape)
+        sig = (tuple(q.shape), dtype_name(q.dtype))
         flash_calls[sig] = flash_calls.get(sig, 0) + 1
         return real_flash(q, k, v, scale)
 
@@ -204,18 +223,27 @@ def plain_kernels():
         yield
 
 
+def dtype_name(dtype):
+    import torch
+
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+
+
 def describe(sig):
-    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj = sig
+    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig
     extras = [n for n, on in (("tb", tb), ("res", res), ("stats_in", sin),
                               ("stats_in2", sin2), ("stats", emit), ("proj", proj)) if on]
     src = f"{c}+{c2}" if c2 else f"{c}"
-    return f"B={b} {h}x{w} {src}->{cout} {'+'.join(extras) or 'none'}"
+    return f"{dt} B={b} {h}x{w} {src}->{cout} {'+'.join(extras) or 'none'}"
 
 
 def make_inputs(sig, device, seed):
+    """Inputs of one launch signature. A bf16 signature gets every tensor in
+    bf16, as the bf16 UNet hands them over (its weights, the noise Linear's
+    time bias, the residual and the skip); the moments stay f32."""
     import torch
 
-    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj = sig
+    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig
     ct = c + c2
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -241,6 +269,14 @@ def make_inputs(sig, device, seed):
     if proj:
         kw["res_kernel"] = randn(1, 1, ct, cout, scale=ct ** -0.5)
         kw["res_bias"] = randn(cout, scale=0.1)
+    if dt == "bf16":
+        args = tuple(a.to(torch.bfloat16) for a in args)
+        for name in ("x2", "time_bias", "residual", "res_kernel", "res_bias"):
+            if name in kw:
+                kw[name] = kw[name].to(torch.bfloat16)
+        for name, src in (("stats_in", args[0]), ("stats_in2", kw.get("x2"))):
+            if name in kw:
+                kw[name] = moments(src.float())
     return args, kw
 
 
@@ -251,11 +287,11 @@ def pick_bound(nbytes, flops):
 
 
 def bound(sig):
-    """Fused Block: each input read once, each output written once, f32
-    activations and bf16 weights."""
-    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj = sig
+    """Fused Block: each input read once, each output written once,
+    activations in the signature's dtype (4 or 2 bytes), bf16 weights."""
+    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig
     ct, pix = c + c2, b * h * w
-    nbytes = 4 * pix * (ct + cout * (1 + res + proj))
+    nbytes = (2 if dt == "bf16" else 4) * pix * (ct + cout * (1 + res + proj))
     nbytes += 2 * (9 + proj) * ct * cout + 4 * (b * h * 2 * (c * sin + c2 * sin2 + cout * emit))
     return pick_bound(nbytes, 2 * pix * cout * ct * (9 + proj))
 
@@ -366,29 +402,34 @@ def flash_kernel_ms(fn, reps=5):
     return {key: (sum(t) / len(t) if t else 0.0, len(t)) for key, t in seen.items()}
 
 
-def check_flash(shape, seed):
+def check_flash(sig, seed):
     """Flash kernel vs plain version on the card, on strided q, k, v views
-    of one qkv tensor as the UNet makes them, and the four times, the
-    prepass's share and the einsum route's time (attention.py's matmul
-    path, f32). The library yardstick is one scaled_dot_product_attention
-    on bf16 copies."""
+    of one qkv tensor (f32 or bf16) as the UNet makes them, and the four
+    times, the prepass's share and the einsum route's time (attention.py's
+    matmul path, in the same dtype). The library yardstick is one
+    scaled_dot_product_attention on bf16 copies."""
     import torch
     import torch.nn.functional as F
 
     from hsi_dmgasr_tpu_torch.kernels import attention as attn
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
 
-    b, s, h, d = shape
+    (b, s, h, d), dt = sig
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = torch.randn((b, s, h, 3 * d), generator=gen, device="cuda").split(d, dim=-1)
+    qkv = torch.randn((b, s, h, 3 * d), generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv.split(d, dim=-1)
     scale = 1.0 / math.sqrt(h * d)
     got = fa.flash_attention(q, k, v, scale)
     want = fa.flash_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
+    if got.dtype != dtype or want.dtype != dtype:
+        raise AssertionError(f"flash {sig}: output dtypes {got.dtype}, {want.dtype}")
+    got, want = got.float(), want.float()
     diff = (got - want).abs()
     err = {"max_abs": diff.max().item(), "max_rel": diff.max().item() / want.abs().max().item()}
     if not bool((diff <= TOL_FLASH_ABS + TOL_FLASH_REL * want.abs()).all()):
-        raise AssertionError(f"flash {shape}: kernel vs plain {err}")
+        raise AssertionError(f"flash {sig}: kernel vs plain {err}")
     del got, want, diff
 
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale), reps=5)
@@ -400,8 +441,8 @@ def check_flash(shape, seed):
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, scale=scale), reps=5)
     del qb, kb, vb
     flops = 4 * b * h * s * s * d
-    b_ms, b_by = pick_bound(4 * 4 * b * s * h * d, flops)
-    return {"signature": f"B={b} S={s} H={h} D={d}", "errors": {"out": err}, "ms": ms,
+    b_ms, b_by = pick_bound(4 * qkv.element_size() * b * s * h * d, flops)
+    return {"signature": f"{dt} B={b} S={s} H={h} D={d}", "errors": {"out": err}, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "prepass_ms": pre_ms, "prepass_share": pre_ms / ms, "attention_kernel_ms": attn_ms,
             "profiled_launches": {"prepass": n_pre, "attention": n_attn},
@@ -514,19 +555,19 @@ def union_ms(spans):
     return busy / 1e3
 
 
-def profile_cube(pipe, cube):
-    """One traced cube: device time by kernel name, the device's busy time
-    (the union of its kernel, copy and memset intervals) and idle share,
-    and the host-clock seconds of each stage (each ends in a synchronize)."""
+def profile_cube(run_cube, stages):
+    """One traced cube (``run_cube()``): device time by kernel name, the
+    device's busy time (the union of its kernel, copy and memset intervals)
+    and idle share; then the host-clock seconds of each stage, each a
+    function of the previous stage's result that ends in a synchronize."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(9)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.super_resolve(cube, generator=gen)
+        run_cube()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, spans = {}, []
@@ -538,19 +579,16 @@ def profile_cube(pipe, cube):
     busy_ms = union_ms(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
 
-    stages = {}
-    b = cube.shape[0]
-    for name, fn in (("encode", lambda: pipe._fold(pipe.encode(cube))),
-                     ("chain", lambda: pipe.ddpm.super_resolution(stages["z"], generator=gen)),
-                     ("decode", lambda: pipe.decode(pipe._unfold(stages["z"], b)))):
+    seconds, state = {}, None
+    for name, fn in stages:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stages["z"] = fn()
+        state = fn(state)
         torch.cuda.synchronize()
-        stages[name + "_s"] = time.perf_counter() - t0
-    del stages["z"]
+        seconds[name + "_s"] = time.perf_counter() - t0
+    del state
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms, "stages": stages,
+            "idle_share": 1.0 - busy_ms / wall_ms, "stages": seconds,
             "kernels": [{"name": k[:120], "ms": ms, "calls": n} for k, (ms, n) in top]}
 
 
@@ -584,11 +622,7 @@ def run_path(name, config, expected, cube, profile):
     if launches != expected or bd.LAUNCHES:
         raise AssertionError(f"[{name}] {launches}, {bd.LAUNCHES} blocked-dot launches in the "
                              f"main-path run, expected {expected} and none")
-    if tuple(out.shape) != CUBE or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"[{name}] cube {tuple(out.shape)} or non-finite values")
-    lo, hi = out.min().item(), out.max().item()
-    if lo < 0.0 or hi > 1.0:
-        raise AssertionError(f"[{name}] cube outside [0, 1]: [{lo}, {hi}]")
+    check_cube(name, out, CUBE)
     del out
     times = []
     for r in range(3):
@@ -625,16 +659,158 @@ def run_path(name, config, expected, cube, profile):
     report.update(unet_forward_err=unet_err, unet_forward_s=fwd_s)
 
     if profile:
-        prof = profile_cube(pipe, cube)
-        report["profile"] = prof
-        log(f"[{name}] profile: wall {prof['wall_ms']:.1f} ms, device busy "
-            f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.4f}, "
-            f"stages {prof['stages']}")
-        for k in prof["kernels"][:12]:
-            log(f"  {k['ms']:9.3f} ms  x{k['calls']:<5} {k['name'][:90]}")
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        b = cube.shape[0]
+        report["profile"] = profile_cube(
+            lambda: pipe.super_resolve(cube, generator=gen),
+            (("encode", lambda _: pipe._fold(pipe.encode(cube))),
+             ("chain", lambda z: pipe.ddpm.super_resolution(z, generator=gen)),
+             ("decode", lambda z: pipe.decode(pipe._unfold(z, b)))))
+        log_profile(name, report["profile"])
     del pipe
     torch.cuda.empty_cache()
     return report, fused_calls, flash_calls
+
+
+def log_profile(name, prof):
+    log(f"[{name}] profile: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.4f}, "
+        f"stages {prof['stages']}")
+    for k in prof["kernels"][:12]:
+        log(f"  {k['ms']:9.3f} ms  x{k['calls']:<5} {k['name'][:90]}")
+
+
+def check_cube(name, out, shape):
+    import torch
+
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[{name}] cube {tuple(out.shape)} or non-finite values")
+    lo, hi = out.min().item(), out.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"[{name}] cube outside [0, 1]: [{lo}, {hi}]")
+
+
+def run_bench(profile):
+    """The bf16 flagship path: the port's bench (hsi_dmgasr_tpu_torch/bench.py)
+    built at its defaults. For each of its two rows, the t_start=4 cube and
+    the full T=20 chain: the counts set to 0, one cube driven while its
+    launch signatures are recorded, the exact counts read, the cube checked
+    and the peak memory read. Then the bench's own timing and JSON line, and
+    one full-width bf16 UNet forward with the kernels held against the same
+    forward on their plain versions. Returns the two rows' reports (each
+    with its launch signatures) and the bench's JSON object."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch import bench
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+
+    args = bench.parse_args([])
+    model = bench.Bench(args, torch.device("cuda"))
+    cube = bench.make_cube(args, model)
+    reports = {}
+    for name, t_start in ((BENCH, args.t_start), (BENCH_FULL, None)):
+        expected = BENCH_PATHS[name]
+        fused_calls, flash_calls = {}, {}
+        fc.LAUNCHES = 0
+        fa.LAUNCHES = 0
+        bd.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        with recording(fused_calls, flash_calls):
+            out = model.super_resolve(cube, 2, t_start)
+        torch.cuda.synchronize()
+        launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[{name}] main path: {launches} kernel launches ({len(fused_calls)} fused "
+            f"signatures), peak memory {peak_gib:.2f} GiB")
+        recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
+        if launches != expected or recorded != expected or bd.LAUNCHES:
+            raise AssertionError(f"[{name}] {launches} launches ({recorded} recorded), "
+                                 f"{bd.LAUNCHES} blocked-dot launches, expected {expected}")
+        check_cube(name, out, (args.batch, model.size, model.size, model.channels))
+        del out
+        reports[name] = ({"t_start": t_start, "peak_memory_gib": peak_gib,
+                          "launches": launches}, fused_calls, flash_calls)
+
+    # the GAE's overlap average on the card: index_add_ of bf16 adds with
+    # atomics, rounding after each add in no fixed order, where the CPU's
+    # sums in f32 and rounds once (and JAX's rounds after each add in index
+    # order). Bands in three groups can differ: each sum is within one bf16
+    # ulp of the exact sum, so two are at most two grid steps apart (2^-6
+    # each below 4), over the count 3, plus the quotient's own rounding.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dec = torch.rand((model.n_groups, model.size, model.size, model.gae.n_subs),
+                     generator=gen, device="cuda").to(torch.bfloat16)
+    got = model.gae._merge_groups(dec, 1, model.size, model.size).float().cpu()
+    want = copy.deepcopy(model.gae).cpu()._merge_groups(dec.cpu(), 1, model.size, model.size)
+    d = (got - want.float()).abs()
+    merge = {"max_abs": d.max().item(), "share_differing": (d > 0).float().mean().item()}
+    log(f"[{BENCH}] bf16 overlap average, card vs CPU: {merge}")
+    if merge["max_abs"] > 2 * 2 ** -6 / 3 + 2 ** -8:
+        raise AssertionError(f"[{BENCH}] bf16 overlap average, card vs CPU: {merge}")
+    reports[BENCH][0]["overlap_average_vs_cpu"] = merge
+    del dec, got, want, d
+
+    result = bench.run(args, model)
+    log(f"[{BENCH}] bench: {json.dumps(result)}")
+    reports[BENCH][0]["cube_seconds"] = result["value"]
+    reports[BENCH_FULL][0]["cube_seconds"] = result["full_chain"]["value"]
+    reports[BENCH][0]["bench"] = result
+
+    # full-width bf16 UNet forward, kernels vs plain versions
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.inference_mode():
+        z = model.gae.encode(cube.to(model.dtype))
+        cond = z.reshape(-1, *z.shape[2:])
+        noise = torch.randn(cond.shape, generator=gen, device="cuda").to(model.dtype)
+        x = torch.cat([cond, noise], -1)
+        t = torch.full((x.shape[0], 1), 0.5, device="cuda").to(model.dtype)
+        y_kernel = model.unet(x, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.unet(x, t)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        with plain_kernels():
+            y_plain = model.unet(x, t)
+        if y_kernel.dtype != torch.bfloat16 or y_plain.dtype != torch.bfloat16:
+            raise AssertionError(f"[{BENCH}] UNet output dtypes {y_kernel.dtype}, {y_plain.dtype}")
+        y_kernel, y_plain = y_kernel.float(), y_plain.float()
+        d = (y_kernel - y_plain).abs()
+        unet_err = {"max_abs": d.max().item(), "max_rel": d.max().item() / y_plain.abs().max().item()}
+        if not bool((d <= TOL_UNET + TOL_UNET * y_plain.abs()).all()):
+            raise AssertionError(f"[{BENCH}] full-width bf16 UNet kernels vs plain: {unet_err}")
+    del y_kernel, y_plain, d, x, cond, z, noise
+    log(f"[{BENCH}] full-width bf16 UNet forward (B=9, 512^2): kernels vs plain {unet_err}, "
+        f"forward {fwd_s:.4f} s")
+    reports[BENCH][0].update(unet_forward_err=unet_err, unet_forward_s=fwd_s)
+
+    if profile:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        b, ts = cube.shape[0], args.t_start
+
+        def chain(cond):
+            with torch.inference_mode():
+                return model.diffusion.sample_loop(model._denoise, cond=cond, t_start=ts,
+                                                   generator=gen)
+
+        def encode(_):
+            with torch.inference_mode():
+                z = model.gae.encode(cube.to(model.dtype))
+                return z.reshape(-1, *z.shape[2:])
+
+        def decode(z):
+            with torch.inference_mode():
+                return model.gae.decode(z.reshape(b, -1, *z.shape[1:]).to(model.dtype))
+
+        reports[BENCH][0]["profile"] = profile_cube(
+            lambda: model.super_resolve(cube, 9, ts),
+            (("encode", encode), ("chain", chain), ("decode", decode)))
+        log_profile(BENCH, reports[BENCH][0]["profile"])
+    del model
+    torch.cuda.empty_cache()
+    return reports
 
 
 def run_probe():
@@ -741,13 +917,17 @@ def main():
     # ---- 3. the main paths
     cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
     report["paths"] = {}
+    runs = {path: run_path(path, config, expected, cube, args.profile)
+            for path, (config, expected) in PATHS.items()}
+    del cube
+    torch.cuda.empty_cache()
+    runs.update(run_bench(args.profile))
     fused_sigs, flash_sigs = {}, {}
-    for path, (config, expected) in PATHS.items():
-        report["paths"][path], fused_calls, flash_calls = run_path(
-            path, config, expected, cube, args.profile)
+    for path, (path_report, fused_calls, flash_calls) in runs.items():
+        report["paths"][path] = path_report
         for sigs, calls in ((fused_sigs, fused_calls), (flash_sigs, flash_calls)):
             for sig, n in calls.items():
-                sigs.setdefault(sig, dict.fromkeys(PATHS, 0))[path] = n
+                sigs.setdefault(sig, dict.fromkeys(UNET_PATHS, 0))[path] = n
     report["paths"][PROBE] = probe = run_probe()
 
     # ---- 4. each kernel vs its plain version, and timings, per signature
@@ -765,9 +945,11 @@ def main():
             f"{row['kernel_bound_frac']:.3f}) x cudnn {row['vs_library']:.2f}")
         torch.cuda.empty_cache()
     flash_rows = []
-    extra = {shape: dict.fromkeys(PATHS, 0) for shape in FLASH_EXTRA}
-    for i, (shape, counts) in enumerate(list(flash_sigs.items()) + list(extra.items())):
-        row = check_flash(shape, seed=200 + i)
+    extra = [((shape, dt), dict.fromkeys(UNET_PATHS, 0)) for dt in ("f32", "bf16")
+             for shape in FLASH_EXTRA + tuple(shape for shape, _ in flash_sigs)]
+    extra = [e for e in extra if e[0] not in flash_sigs]
+    for i, (sig, counts) in enumerate(list(flash_sigs.items()) + extra):
+        row = check_flash(sig, seed=200 + i)
         row["counts"] = counts
         flash_rows.append(row)
         err = row["errors"]["out"]
@@ -793,7 +975,7 @@ def main():
             f"{row['vs_library']:.2f} | chain us/dot {row['chain_us_per_dot']}")
     report["fused_signatures"], report["flash_signatures"] = fused_rows, flash_rows
     report["dot_signatures"] = dot_rows
-    for path in PATHS:
+    for path in UNET_PATHS:
         levels = {}
         for r in fused_rows:
             lv = levels.setdefault(r["level"], dict.fromkeys(
@@ -817,7 +999,7 @@ def main():
 
     # ---- 6. results
     def launches(kernel):
-        return {p: report["paths"][p]["launches"][kernel] for p in PATHS}
+        return {p: report["paths"][p]["launches"][kernel] for p in UNET_PATHS}
 
     entries = [
         kernel_entry(FUSED, "hsi_dmgasr_tpu_torch/csrc/fused_conv.cu",
@@ -837,7 +1019,8 @@ def main():
     report["kernels"] = entries
     if args.profile:
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:
-            json.dump({p: report["paths"][p].pop("profile") for p in PATHS}, f, indent=1)
+            json.dump({p: report["paths"][p].pop("profile") for p in (*PATHS, BENCH)}, f,
+                      indent=1)
     report["script_s"] = time.perf_counter() - t_script
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -11,9 +11,12 @@
 //   exp(m_old - m_new) at every K/V tile;  o += bf16(p) . bf16(v)
 //   out = o / l
 //
-// Operands: q, k, v are (B, S, H, D) f32, read with their own strides
-// (they are the strided q/k/v views of the UNet's qkv split); out is a
-// fresh contiguous (B, S, H, D) f32 tensor.
+// Operands: q, k, v are (B, S, H, D), all f32 or all bf16, read with their
+// own strides (they are the strided q/k/v views of the UNet's qkv split);
+// out is a fresh contiguous (B, S, H, D) tensor of their type, rounded once
+// from the f32 o / l. With bf16 operands the caller passes the scale rounded
+// to bf16, as the TPU kernel's bf16 q_ref[:] * scale rounds it, so
+// bf16(q * scale) is one rounding of an exact product.
 //
 // Bound on this card (H100 SXM, 989 TFLOP/s bf16, 3.35 TB/s): operations.
 // At the main path's shape (B*H = 9, S = 16384, D = 256) one launch is
@@ -28,8 +31,9 @@
 // shape without its ping-pong):
 //  * a prepass (to_bf16_kernel) writes bf16(q * scale), bf16(k) and bf16(v)
 //    once into a contiguous (3, B*H, S, D) bf16 scratch that the caller
-//    allocates: ~0.68 GB moved at the main path's shape, ~0.2 ms. The main
-//    kernel then moves bf16 tiles only, and no thread rounds or copies.
+//    allocates: ~0.68 GB moved at the main path's f32 shape, ~0.2 ms (bf16
+//    operands read half the bytes). The main kernel then moves bf16 tiles
+//    only, and no thread rounds or copies.
 //  * grid: query tiles of 128 rows x (B*H); 384 threads in three
 //    warpgroups. One thread of the first issues TMA loads: the CTA's Q once
 //    and 64-key K and V tiles into a ring of mbarrier-guarded stages (2 at
@@ -48,11 +52,12 @@
 //    GEMMs; the other warpgroup's GEMMs are what overlaps it. exp is
 //    ex2.approx on log2e-scaled logits.
 // D = 384 and 512 (no main path launches them) keep the first design,
-// flash_attention_kernel on mma.sync: f32 q, k, v read in place, K/V tiles
-// of 32 keys staged in f32 one tile ahead and rounded to bf16 in shared
-// memory, and two column slices that each recompute Q K^T (a 16 x D f32
-// accumulator per warp would not fit in registers). dispatch() picks the
-// body by D; neither falls back to the other.
+// flash_attention_kernel on mma.sync: q, k, v read in place in their type,
+// K/V tiles of 32 keys staged one tile ahead and rounded to bf16 in shared
+// memory (bf16 tiles are copied as they are), and two column slices that
+// each recompute Q K^T (a 16 x D f32 accumulator per warp would not fit in
+// registers). dispatch() picks the body by D and the type; neither body
+// falls back to the other.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -76,10 +81,10 @@ struct Shape {
 };
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;                      // (B, S, H, D) contiguous
+  const void* q;                 // f32 or bf16, as the kernel's T
+  const void* k;
+  const void* v;
+  void* o;                       // (B, S, H, D) contiguous, T
   __nv_bfloat16* scratch;        // (3, B*H, S, D): bf16(q * scale), bf16(k), bf16(v)
   long long qs_b, qs_s, qs_h;    // element strides (the d stride is 1)
   long long ks_b, ks_s, ks_h;
@@ -88,12 +93,24 @@ struct Params {
   float scale;
 };
 
+// four consecutive elements, as f32
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
@@ -146,8 +163,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 // Q: rows [r0, r0 + ROWS) x NC columns of a row-strided source into shared
 // memory as bf16(x * scale), row stride NC + PAD; rows at or past S are zero.
-template <int NC, int ROWS, int NTHREADS>
-__device__ __forceinline__ void stage_scaled(__nv_bfloat16* dst, const float* src,
+template <int NC, int ROWS, int NTHREADS, typename T>
+__device__ __forceinline__ void stage_scaled(__nv_bfloat16* dst, const T* src,
                                              long long row_stride, int r0, int S,
                                              float scale) {
   constexpr int PER_ROW = NC / 4;
@@ -167,12 +184,12 @@ __device__ __forceinline__ void stage_scaled(__nv_bfloat16* dst, const float* sr
   }
 }
 
-// K/V: issue the copy of BK rows x NC columns, in f32, into a dense
+// K/V: issue the copy of BK rows x NC columns, in T, into a dense
 // [BK][NC] staging tile; rows at or past S are zero-filled.
-template <int NC, int NTHREADS>
-__device__ __forceinline__ void copy_tile_async(float* dst, const float* src,
+template <int NC, int NTHREADS, typename T>
+__device__ __forceinline__ void copy_tile_async(T* dst, const T* src,
                                                 long long row_stride, int r0, int S) {
-  constexpr int VEC = 4;
+  constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = NC / VEC;
   static_assert(BK * PER_ROW % NTHREADS == 0, "whole steps");
 #pragma unroll
@@ -185,9 +202,10 @@ __device__ __forceinline__ void copy_tile_async(float* dst, const float* src,
   }
 }
 
-// round a staged [BK][NC] tile to bf16 rows of stride NC + PAD
-template <int NC, int NTHREADS>
-__device__ __forceinline__ void round_tile(__nv_bfloat16* dst, const float* src) {
+// round a staged [BK][NC] tile to bf16 rows of stride NC + PAD (a bf16
+// tile is copied as it is)
+template <int NC, int NTHREADS, typename T>
+__device__ __forceinline__ void round_tile(__nv_bfloat16* dst, const T* src) {
   constexpr int PER_ROW = NC / 4;
   static_assert(BK * PER_ROW % NTHREADS == 0, "whole steps");
 #pragma unroll
@@ -195,12 +213,18 @@ __device__ __forceinline__ void round_tile(__nv_bfloat16* dst, const float* src)
     const int u = threadIdx.x + i * NTHREADS;
     const int r = u / PER_ROW;
     const int c = (u - r * PER_ROW) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(src + r * NC + c);
-    *reinterpret_cast<uint2*>(dst + r * (NC + PAD) + c) =
-        make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+    uint2 w;
+    if constexpr (sizeof(T) == 2) {
+      w = *reinterpret_cast<const uint2*>(src + r * NC + c);
+    } else {
+      const float4 x = *reinterpret_cast<const float4*>(src + r * NC + c);
+      w = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+    }
+    *reinterpret_cast<uint2*>(dst + r * (NC + PAD) + c) = w;
   }
 }
 
+// the f32 staging size: a bf16 kernel stages in half of it
 template <int D>
 constexpr int smem_bytes() {
   using Sh = Shape<D>;
@@ -208,7 +232,7 @@ constexpr int smem_bytes() {
          BK * (D + Sh::DV) * 4;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(Shape<D>::NTHREADS)
 flash_attention_kernel(const Params p) {
   using Sh = Shape<D>;
@@ -219,8 +243,8 @@ flash_attention_kernel(const Params p) {
   __nv_bfloat16* qsm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ksm = qsm + BQ * QS;
   __nv_bfloat16* vsm = ksm + BK * QS;
-  float* kst = reinterpret_cast<float*>(vsm + BK * VS);   // f32 staging
-  float* vst = kst + BK * D;
+  T* kst = reinterpret_cast<T*>(vsm + BK * VS);   // staging in T
+  T* vst = kst + BK * D;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -231,9 +255,9 @@ flash_attention_kernel(const Params p) {
   const int b = bh / p.H, h = bh - b * p.H;
   const int S = p.S;
 
-  const float* qg = p.q + b * p.qs_b + h * p.qs_h;
-  const float* kg = p.k + b * p.ks_b + h * p.ks_h;
-  const float* vg = p.v + b * p.vs_b + h * p.vs_h + c0;
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs_b + h * p.qs_h;
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks_b + h * p.ks_h;
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs_b + h * p.vs_h + c0;
 
   copy_tile_async<D, NTHREADS>(kst, kg, p.ks_s, 0, S);
   copy_tile_async<DV, NTHREADS>(vst, vg, p.vs_s, 0, S);
@@ -347,14 +371,14 @@ flash_attention_kernel(const Params p) {
   }
 
   // ---- out = O / l
-  float* og = p.o;
+  T* og = static_cast<T*>(p.o);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = q0 + warp * 16 + g + r * 8;
     if (row < S) {
-      float* orow = og + (((long long)b * S + row) * p.H + h) * D + c0 + 2 * t;
+      T* orow = og + (((long long)b * S + row) * p.H + h) * D + c0 + 2 * t;
 #pragma unroll
       for (int nt = 0; nt < DV / 8; ++nt)
         store2(orow + nt * 8, o[nt][2 * r] / l[r], o[nt][2 * r + 1] / l[r]);
@@ -362,12 +386,12 @@ flash_attention_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch(const Params& p, cudaStream_t stream) {
   using Sh = Shape<D>;
   constexpr int smem = smem_bytes<D>();
   static_assert(smem <= 232448, "shared memory of one CTA");
-  auto kern = flash_attention_kernel<D>;
+  auto kern = flash_attention_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -379,8 +403,9 @@ int launch(const Params& p, cudaStream_t stream) {
 // ---------------------------------------------------------------- prepass
 
 // One thread per 8 elements of a (which, b*H + h, s) row of D: reads the
-// strided f32 view, writes bf16 (q times scale) into the contiguous scratch.
-template <int D>
+// strided f32 or bf16 view, writes bf16 (q times scale) into the contiguous
+// scratch (bf16 k and v are copied as they are).
+template <int D, typename T>
 __global__ void __launch_bounds__(256) to_bf16_kernel(const Params p) {
   constexpr int PER_ROW = D / 8;
   const long long rows = (long long)p.B * p.H * p.S;
@@ -392,15 +417,15 @@ __global__ void __launch_bounds__(256) to_bf16_kernel(const Params p) {
   const long long r = row - which * rows;
   const int bh = (int)(r / p.S), s = (int)(r - (long long)bh * p.S);
   const int b = bh / p.H, h = bh - b * p.H;
-  const float* src;
+  const T* src;
   float mul = 1.f;
   if (which == 0) {
-    src = p.q + b * p.qs_b + s * p.qs_s + h * p.qs_h;
+    src = static_cast<const T*>(p.q) + b * p.qs_b + s * p.qs_s + h * p.qs_h;
     mul = p.scale;
   } else if (which == 1) {
-    src = p.k + b * p.ks_b + s * p.ks_s + h * p.ks_h;
+    src = static_cast<const T*>(p.k) + b * p.ks_b + s * p.ks_s + h * p.ks_h;
   } else {
-    src = p.v + b * p.vs_b + s * p.vs_s + h * p.vs_h;
+    src = static_cast<const T*>(p.v) + b * p.vs_b + s * p.vs_s + h * p.vs_h;
   }
   const float4 x0 = load4(src + c), x1 = load4(src + c + 4);
   uint4 w;
@@ -565,7 +590,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
   else wgmma_m64n256k16_rs(o, a, db);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const Params p) {
   using Sh = WgShape<D>;
@@ -712,7 +737,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const Params p) {
       const float inv = 1.f / l[r];
       const int row = q0 + cw * 64 + warp * 16 + g + r * 8;
       if (row < S) {
-        float* orow = p.o + (((long long)b * S + row) * p.H + h) * D + 2 * t;
+        T* orow = static_cast<T*>(p.o) + (((long long)b * S + row) * p.H + h) * D + 2 * t;
 #pragma unroll
         for (int nt = 0; nt < D / 8; ++nt)
           store2(orow + nt * 8, o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
@@ -740,18 +765,18 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-template <int D>
+template <int D, typename T>
 int launch_prepass(const Params& p, cudaStream_t stream) {
   if (p.scratch == nullptr) return (int)cudaErrorInvalidValue;
   const long long work = 3LL * p.B * p.H * p.S * (D / 8);
-  to_bf16_kernel<D><<<(unsigned)((work + 255) / 256), 256, 0, stream>>>(p);
+  to_bf16_kernel<D, T><<<(unsigned)((work + 255) / 256), 256, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   using Sh = WgShape<D>;
-  int rc = launch_prepass<D>(p, stream);
+  int rc = launch_prepass<D, T>(p, stream);
   if (rc != 0) return rc;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -766,7 +791,7 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   static_assert(Sh::SMEM <= 232448 - 1024, "shared memory of one CTA");
-  auto kern = flash_wgmma_kernel<D>;
+  auto kern = flash_wgmma_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Sh::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -776,22 +801,23 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
 }
 
 // the body by head dim (see the note at the top): the bf16 prepass and the
-// wgmma body at D = 128 and 256, the f32-staged body at D = 384 and 512
+// wgmma body at D = 128 and 256, the staged mma.sync body at D = 384 and 512
+template <typename T>
 int dispatch(const Params& p, int D, cudaStream_t s) {
   switch (D) {
-    case 128: return launch_wgmma<128>(p, s);
-    case 256: return launch_wgmma<256>(p, s);
-    case 384: return launch<384>(p, s);
-    case 512: return launch<512>(p, s);
+    case 128: return launch_wgmma<128, T>(p, s);
+    case 256: return launch_wgmma<256, T>(p, s);
+    case 384: return launch<384, T>(p, s);
+    case 512: return launch<512, T>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Plain C entry, bound with ctypes. q, k, v and o are f32. Strides are in
-// elements; the last (d) stride of q, k and v must be 1, rows 16-byte
-// aligned. D is 128, 256, 384 or 512. At D = 128 and 256, scratch is a
+// Plain C entry, bound with ctypes. q, k, v and o are f32, or bf16 when
+// bf16 != 0. Strides are in elements; the last (d) stride of q, k and v
+// must be 1, rows 16-byte aligned. D is 128, 256, 384 or 512. At D = 128 and 256, scratch is a
 // (3, B*H, S, D) bf16 buffer the kernel may overwrite (unused, and may be
 // null, at 384 and 512). Returns the cudaError_t of the first launch that
 // failed (0 on success).
@@ -800,12 +826,12 @@ extern "C" int hsi_flash_attention(
     long long qs_b, long long qs_s, long long qs_h,
     long long ks_b, long long ks_s, long long ks_h,
     long long vs_b, long long vs_s, long long vs_h,
-    int B, int S, int H, int D, float scale, void* scratch, void* stream) {
+    int B, int S, int H, int D, float scale, int bf16, void* scratch, void* stream) {
   Params p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<float*>(o);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
   p.scratch = static_cast<__nv_bfloat16*>(scratch);
   p.qs_b = qs_b;
   p.qs_s = qs_s;
@@ -820,5 +846,6 @@ extern "C" int hsi_flash_attention(
   p.S = S;
   p.H = H;
   p.scale = scale;
-  return dispatch(p, D, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch<__nv_bfloat16>(p, D, st) : dispatch<float>(p, D, st);
 }

@@ -12,6 +12,12 @@ Gaussians for deterministic replay, e.g. against the JAX package.
 The denoise function signature is ``denoise_fn(x, noise_level) -> eps``
 where x already carries the conditioning concat. Only the conditional
 chain with a clipped x_0 estimate is ported (the SR3 inference path).
+
+Dtypes follow the JAX package's promotion: the chain state x, the noise
+and every coefficient are f32 whatever the dtype of ``cond``; the concat
+[cond, x] is f32; a bf16 eps is widened before it meets an f32 scalar,
+so ``x_recon`` and ``mean`` are f32 products, as JAX's f32 scalars make
+them (a Python float times a bf16 tensor would stay bf16 in torch).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ class GaussianDiffusion:
         ``noise`` overrides the drawn Gaussian; it is zero at t = 0."""
         noise_level = torch.full((x.shape[0], 1), float(self._sacp_prev[t + 1]),
                                  dtype=torch.float32, device=x.device)
-        eps = denoise_fn(torch.cat([cond, x], -1), noise_level)
+        eps = denoise_fn(torch.cat([cond.to(x.dtype), x], -1), noise_level).float()
         x_recon = float(self._srac[t]) * x - float(self._sracm1[t]) * eps
         x_recon = x_recon.clamp(-1.0, 1.0)
         mean = float(self._c1[t]) * x_recon + float(self._c2[t]) * x
@@ -62,7 +68,7 @@ class GaussianDiffusion:
         g = self._sacp_prev[t_start]
         eps = torch.randn(cond.shape, generator=generator, dtype=torch.float32,
                           device=cond.device)
-        return float(g) * cond + float(np.sqrt(np.float32(1.0) - g * g)) * eps
+        return float(g) * cond.float() + float(np.sqrt(np.float32(1.0) - g * g)) * eps
 
     def sample_loop(self, denoise_fn, cond, x_init=None, noise_seq=None,
                     t_start=None, generator=None):

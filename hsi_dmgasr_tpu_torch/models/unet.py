@@ -14,8 +14,15 @@ final conv through the fused GroupNorm -> swish -> conv3x3 kernel
 time bias, emits its output's per-row moments and folds the 1x1
 res_conv; block2 takes the residual and block1's moments; the skip stack
 carries (tensor, moments) so up-path GroupNorms need no stats pass; the
-skip rides the kernel as a second source only when dim_out < 128, and
-boundary convs and attention reset the moment chain.
+skip rides the kernel as a second source per ``fuse_skip`` ("auto": only
+when dim_out < 128), and boundary convs and attention reset the moment
+chain. ``fuse_stats=False`` turns the moment chain off (every fused
+GroupNorm reduces its own input).
+
+Mixed precision follows the JAX package: the module's dtype is its
+weights' (``.to(torch.bfloat16)`` for bf16 inference), the activations
+follow the input's dtype, GroupNorm computes in f32 and rounds once, and
+the noise encoding stays in the noise level's dtype.
 """
 
 from __future__ import annotations
@@ -60,12 +67,13 @@ class Swish(nn.Module):
 
 
 class GroupNorm(nn.GroupNorm):
-    """torch.nn.GroupNorm on NHWC tensors."""
+    """torch.nn.GroupNorm on NHWC tensors, computed in f32 (the weights
+    promoted) and rounded once to x.dtype, as the JAX package's ``GN``."""
 
     def forward(self, x):
-        y = F.group_norm(x.permute(0, 3, 1, 2), self.num_groups, self.weight,
-                         self.bias, self.eps)
-        return y.permute(0, 2, 3, 1)
+        y = F.group_norm(x.permute(0, 3, 1, 2).float(), self.num_groups,
+                         self.weight.float(), self.bias.float(), self.eps)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 class Block(nn.Module):
@@ -132,10 +140,14 @@ class ResnetBlock(nn.Module):
     (sr3_modules/unet.py:94-111)."""
 
     def __init__(self, dim, dim_out, noise_level_emb_dim=None, dropout=0.0,
-                 norm_groups=32, fuse=False):
+                 norm_groups=32, fuse=False, fuse_skip="auto", fuse_stats=True):
         super().__init__()
         self.dim_out = dim_out
         self.fuse = fuse
+        # the skip rides the kernel as x2 ("auto": while dim_out under-fills
+        # the JAX package's 128-lane tile), else the concat is materialised
+        self.fuse_skip = dim_out < 128 if fuse_skip == "auto" else bool(fuse_skip)
+        self.fuse_stats = fuse_stats
         self.noise_func = (FeatureWiseAffine(noise_level_emb_dim, dim_out)
                            if noise_level_emb_dim else None)
         self.block1 = Block(dim, dim_out, groups=norm_groups)
@@ -155,23 +167,23 @@ class ResnetBlock(nn.Module):
         return self.block2(h) + self.res_conv(xin), None
 
     def _fused(self, x, emb, x2, stats_in, emit_stats, x2_stats):
-        if x2 is not None and self.dim_out >= 128:
-            # the skip rides the kernel only while dim_out under-fills the
-            # JAX package's 128-lane tile; otherwise concat, and concat the
-            # moments when both are known
+        if x2 is not None and not self.fuse_skip:
+            # concat, and concat the moments when both are known
             x = torch.cat([x, x2], -1)
             both = stats_in is not None and x2_stats is not None
             stats_in = torch.cat([stats_in, x2_stats], -1) if both else None
             x2 = x2_stats = None
+        emit_stats = emit_stats and self.fuse_stats
         c_in = x.shape[-1] + (x2.shape[-1] if x2 is not None else 0)
         tb = self.noise_func.bias(emb) if self.noise_func is not None else None
         res_conv = self.res_conv if c_in != self.dim_out else None
-        parts = self.block1.fused(x, time_bias=tb, x2=x2, emit_stats=True,
+        parts = self.block1.fused(x, time_bias=tb, x2=x2, emit_stats=self.fuse_stats,
                                   stats_in=stats_in, res_conv=res_conv,
                                   stats_in2=x2_stats)
-        h, s1 = parts[0], parts[1]
+        parts = parts if isinstance(parts, tuple) else (parts,)
+        h, s1 = parts[0], parts[1] if self.fuse_stats else None
         if res_conv is not None:
-            res = parts[2]
+            res = parts[-1]
         else:
             res = torch.cat([x, x2], -1) if x2 is not None else x
         out = self.block2.fused(h, residual=res, stats_in=s1, emit_stats=emit_stats)
@@ -200,11 +212,12 @@ class SelfAttention(nn.Module):
 
 class ResnetBlocWithAttn(nn.Module):
     def __init__(self, dim, dim_out, noise_level_emb_dim=None, norm_groups=32,
-                 dropout=0.0, with_attn=False, fuse=False):
+                 dropout=0.0, with_attn=False, fuse=False, fuse_skip="auto",
+                 fuse_stats=True):
         super().__init__()
         self.with_attn = with_attn
         self.res_block = ResnetBlock(dim, dim_out, noise_level_emb_dim, dropout,
-                                     norm_groups, fuse)
+                                     norm_groups, fuse, fuse_skip, fuse_stats)
         if with_attn:
             self.attn = SelfAttention(dim_out, norm_groups=norm_groups)
 
@@ -247,7 +260,7 @@ class UNet(nn.Module):
     def __init__(self, in_channel=6, out_channel=3, inner_channel=32,
                  norm_groups=32, channel_mults=(1, 2, 4, 8, 8), attn_res=(8,),
                  res_blocks=3, dropout=0.0, with_noise_level_emb=True,
-                 image_size=128, fuse_blocks=False):
+                 image_size=128, fuse_blocks=False, fuse_skip="auto", fuse_stats=True):
         super().__init__()
         self.in_channel = in_channel
         self.fuse_blocks = fuse_blocks
@@ -260,7 +273,7 @@ class UNet(nn.Module):
 
         def resblock(dim, dim_out, with_attn):
             return ResnetBlocWithAttn(dim, dim_out, emb_dim, norm_groups, dropout,
-                                      with_attn, fuse_blocks)
+                                      with_attn, fuse_blocks, fuse_skip, fuse_stats)
 
         num_mults = len(channel_mults)
         pre = inner_channel

@@ -16,9 +16,12 @@ import math
 import torch
 from torch import nn
 
+
 class Conv2d(nn.Conv2d):
     """torch.nn.Conv2d on NHWC tensors, padding k//2 * dilation (the
-    reference's ``default_conv``, common.py:19-32)."""
+    reference's ``default_conv``, common.py:19-32). As in the JAX
+    package, the kernel is cast to x.dtype and the bias is added in the
+    output's dtype, so bf16 weights serve an f32 input and the reverse."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  bias=True, dilation=1):
@@ -27,7 +30,9 @@ class Conv2d(nn.Conv2d):
                          dilation=dilation, bias=bias)
 
     def forward(self, x):
-        y = super().forward(x.permute(0, 3, 1, 2))
+        y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), None)
+        if self.bias is not None:
+            y.add_(self.bias.to(y.dtype)[:, None, None])
         return y.permute(0, 2, 3, 1).contiguous()
 
 

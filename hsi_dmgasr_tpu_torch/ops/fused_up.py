@@ -31,8 +31,12 @@ def up2_conv3x3(x, kernel, bias=None):
     x: (B, H, W, C); kernel: (3, 3, C, Cout) HWIO; bias: (Cout,).
     Returns (B, 2H, 2W, Cout). An input-dilated convolution with the
     composed kernel is a transposed convolution with that kernel flipped,
-    in torch's (C, Cout, kh, kw) layout.
+    in torch's (C, Cout, kh, kw) layout. As in the JAX package, the taps
+    are composed in the kernel's dtype and cast to x.dtype, and the bias
+    is added in the output's dtype.
     """
     w = _compose_up2(kernel).flip(0, 1).permute(2, 3, 0, 1).to(x.dtype)
-    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, bias, stride=2, padding=1)
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2, padding=1)
+    if bias is not None:
+        out.add_(bias.to(out.dtype)[:, None, None])
     return out.permute(0, 2, 3, 1).contiguous()

@@ -92,6 +92,7 @@ CASES = [
     ((2, 7, 140, 64, 0, 3), "stats_in+stats"),  # thin Cout=3 tile, two W segments
     ((1, 4, 16, 1024, 0, 128), "tb+proj+stats"),  # a 32-chunk K loop
     ((1, 3, 136, 128, 64, 64), "tb+stats+proj"),  # the 512^2 up-block source split
+    ((1, 4, 24, 256, 128, 128), "tb+stats+proj"),  # x2 at Cout >= 128 (fuse_skip=True)
 ]
 
 
@@ -99,6 +100,31 @@ CASES = [
 @pytest.mark.parametrize("shape,extras", CASES)
 def test_kernel_matches_plain(dev, shape, extras, dtype):
     args, kw = _case(*shape, extras, dtype, dev)
+    want = fused_conv.gn_swish_conv3x3_plain(*args, **kw)
+    n0 = fused_conv.LAUNCHES
+    got = fused_conv.gn_swish_conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_conv.LAUNCHES == n0 + 1
+    _compare(got, want, kw["emit_stats"])
+
+
+# every operand in bf16, as the bf16 UNet hands them over: GroupNorm and
+# conv params, a bf16 time bias from the noise Linear, bf16 residual and x2
+BF16_CASES = [
+    ((2, 8, 48, 64, 64, 64), "tb+stats+proj"),        # up-path block1, skip riding
+    ((1, 5, 24, 64, 64, 128), "tb+res+stats"),        # x2 and a residual, ct == Cout
+    ((1, 4, 24, 256, 128, 128), "tb+stats+proj"),     # x2 at Cout >= 128
+    ((2, 6, 32, 128, 0, 128), "res+stats_in+stats"),  # block2
+]
+
+
+@pytest.mark.parametrize("shape,extras", BF16_CASES)
+def test_kernel_bf16_operands_match_plain(dev, shape, extras):
+    args, kw = _case(*shape, extras, torch.bfloat16, dev)
+    args = tuple(a.to(torch.bfloat16) for a in args)
+    for name in ("time_bias", "res_kernel", "res_bias"):
+        if name in kw:
+            kw[name] = kw[name].to(torch.bfloat16)
     want = fused_conv.gn_swish_conv3x3_plain(*args, **kw)
     n0 = fused_conv.LAUNCHES
     got = fused_conv.gn_swish_conv3x3(*args, **kw)
@@ -126,9 +152,9 @@ FLASH_CASES = [
 ]
 
 
-def _qkv(b, s, h, d, dev, seed=0):
+def _qkv(b, s, h, d, dev, seed=0, dtype=torch.float32):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn((b, s, h, 3 * d), generator=gen, device=dev)
+    qkv = torch.randn((b, s, h, 3 * d), generator=gen, device=dev).to(dtype)
     return qkv.split(d, dim=-1)
 
 
@@ -143,6 +169,30 @@ def test_flash_matches_plain(dev, shape):
     assert flash_attention.LAUNCHES == n0 + 1
     assert got.shape == want.shape and got.dtype == want.dtype and got.is_contiguous()
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-2)
+
+
+# bf16 q, k, v (the bf16 UNet's qkv split): the prepass copies k and v and
+# rounds q * bf16(scale) once; the output is rounded once to bf16, so a
+# one-ulp flip of it (2^-8 relative) stays inside rtol 1e-2
+FLASH_BF16_CASES = [
+    (2, 300, 1, 128),   # ragged S
+    (1, 8200, 1, 256),  # the wgmma body past the gate, a ragged last tile
+    (1, 130, 1, 384),   # the staged mma.sync body, bf16 tiles copied
+    (2, 70, 1, 512),
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_BF16_CASES)
+def test_flash_bf16_matches_plain(dev, shape):
+    q, k, v = _qkv(*shape, dev, dtype=torch.bfloat16)
+    scale = 1.0 / np.sqrt(shape[2] * shape[3])
+    want = flash_attention.flash_attention_plain(q, k, v, scale)
+    n0 = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == n0 + 1
+    assert got.dtype == torch.bfloat16 == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=1e-2)
 
 
 @pytest.mark.parametrize("d", [128, 256])

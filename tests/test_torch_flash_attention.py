@@ -65,7 +65,7 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("shape,kw,match", [
     ((1, 64, 1, 64), {}, "head dim"),
     ((1, 64, 1, 640), {}, "head dim"),
-    ((1, 64, 1, 128), {"dtype": torch.bfloat16}, "dtypes"),
+    ((1, 64, 1, 128), {"dtype": torch.float16}, "dtypes"),
     ((1, 64, 1, 128), {"k_shape": (1, 32, 1, 128)}, "share one"),
     ((1, 64, 1, 128), {"transpose": True}, "unit stride"),
 ])
