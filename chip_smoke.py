@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives four main paths. Three are x4 DMGASR on a
+checkout. It drives five main paths. Three are x4 DMGASR on a
 512x512x102 Pavia-geometry cube at full width (UNet inner 64, mults
 1,2,4,8,8, res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16,
 n_ovls 4, n_feats 64, G=9; seeded random weights):
@@ -25,7 +25,20 @@ n_ovls 4, n_feats 64, G=9; seeded random weights):
     1100 fused Blocks and no flash; it prints the bench's JSON line (both
     cube times, the UNet step's roofline share).
 
-The fourth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
+The fourth is stage-2 training at the same full width:
+
+  * train_r3: configs/pavia_x4_r3.json through the port's driver
+    (stage2_driver.train, as the CLI runs it): dropout 0.2, Adam with the
+    cosine lr, EMA 0.999 sampled at eval, device-resident scenes with the
+    degradation on the card; 4 HR crops of 128^2 x 102 a step, so 36
+    latents through the unfused autograd UNet (TF32 off). Cut: 12 steps,
+    then one periodic save, one validation (3 val scenes of 128^2 x 3
+    chains at t_start=4, fused Blocks) and one best save; 8 training
+    scenes of 256^2 and the val scenes written from a seed; a seeded GAE
+    saved as a state_dict. The steps launch no kernel; the validation
+    launches 55 x 4 fused Blocks per (scene, chain), 1980.
+
+The fifth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
 
   * int8_probe: chains of 4000 dependent dots x @ w with a requantize
     step, at M = 4096 and (K, N) = (512, 512), (576, 256), (192, 256),
@@ -44,7 +57,18 @@ In order:
     kernels, checks the cube (shape, finite, in [0, 1]) and the exact
     launch counts, times it (median of 3) and reads the peak memory; holds
     one full-width UNet forward with the kernels against the same forward
-    with their plain versions (in bf16 for the bench). Then the probe:
+    with their plain versions (in bf16 for the bench; the f32 paths also
+    report both against the unfused f32 forward). Then train_r3:
+    counts to 0, stage2_driver's steps and validation, with the counts read at
+    both ends of the validation; every step's loss finite, the EMA after
+    every step against 0.999 EMA_prev + 0.001 params on a few leaves, the
+    periodic checkpoint loaded back into a fresh DDPMModel bit for bit,
+    every live and EMA weight's _version moved by one more step (the fused
+    Block's pack key) and the fused EMA UNet then against its plain-kernel
+    and unfused forwards, one
+    batch-1 step on the card against the same step on the CPU; ms per step
+    (median after 2 warm-up steps), latents per second, peak memory, the
+    step's share of its f32 roofline, seconds per validation cube. Then the probe:
     counts to 0, the probe run once, the exact launch counts, and the int8
     chains of the kernel and the library held equal bit for bit after 4000
     links;
@@ -66,10 +90,12 @@ In order:
     line {"ok": true, "device": {...}}.
 
 Details go to chiprun_out/chip_smoke.json. ``--profile`` adds one traced
-cube per path (the bench's t_start=4 row for bench_x4_bf16): device time
-by kernel name (torch.profiler), the device's idle share and the seconds
-of each stage (GAE encode, reverse chain, GAE decode), into
-chip_smoke_profile.json beside it.
+cube per path (the bench's t_start=4 row for bench_x4_bf16, one train
+step for train_r3): device time by kernel name (torch.profiler), the
+device's idle share and the seconds of each stage (GAE encode, reverse
+chain, GAE decode; for a train step: degradation, GAE encode, UNet
+forward + backward, Adam + EMA), into chip_smoke_profile.json beside it.
+train_r3 writes its data and experiment directory under build/train_r3.
 """
 
 from __future__ import annotations
@@ -78,6 +104,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -106,7 +133,15 @@ PATHS = {
 # block, at 32^2, below the flash gate)
 BENCH, BENCH_FULL = "bench_x4_bf16", "bench_x4_bf16:full_chain"
 BENCH_PATHS = {BENCH: {FUSED: 220, FLASH: 0}, BENCH_FULL: {FUSED: 1100, FLASH: 0}}
-UNET_PATHS = (*PATHS, *BENCH_PATHS)
+# stage-2 training under configs/pavia_x4_r3.json through the port's driver:
+# TRAIN_STEPS steps (no kernel launch: training runs the unfused autograd
+# UNet), then one validation of 3 scenes x 3 chains, each 55 fused Blocks
+# per UNet forward x t_start=4 at 128^2 ... 8^2 (attention at 16^2, on the
+# einsum route)
+TRAIN, TRAIN_STEPS = "train_r3", 12
+TRAIN_VAL = {FUSED: 55 * 4 * 3 * 3, FLASH: 0}
+TRAIN_SCENES, TRAIN_SCENE_HW, VAL_HW = 8, 256, 128
+UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN)
 # flash checks beside the path's own shape: D=128 (two heads) and D=512
 # with a ragged S, both past the 8192-token gate, and pavia_x4_r3's 64^2
 # attention (4096 tokens, D=512), which the gate keeps on the einsum path:
@@ -118,14 +153,20 @@ FLASH_EXTRA = ((9, 16384, 2, 128), (4, 8200, 1, 512), (9, 4096, 1, 512))
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 
-# kernel vs plain version on the card: same bf16 operands, f32 sums in
-# another order (and a rare one-ulp flip of a bf16 activation or p)
+# kernel vs plain version on the card: the same bf16 weights and (bf16
+# input) activations, f32 sums in another order (and a rare one-ulp flip of
+# a bf16 activation or p)
 TOL_OUT = 1e-2      # atol = rtol on out and the res projection
 TOL_STATS = 1e-3    # max |diff| / max |plain| on the per-row moments
 # on the attention output, whose elements are weighted means of
 # unit-variance values, typically 0.01-0.02 at these shapes
 TOL_FLASH_ABS, TOL_FLASH_REL = 1e-3, 1e-2
-TOL_UNET = 3e-2     # full UNet forward, the JAX package's fused-UNet tolerance
+# full UNet forward, the JAX package's fused-UNet tolerance: atol = rtol
+TOL_UNET = 3e-2
+# training: the EMA against its recomputation from per-step snapshots (max
+# |diff| / max |want| per leaf), and one step on the card against the same
+# step on the CPU (loss relative; gradients atol 1e-3 of the largest |g|)
+TOL_EMA, TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-6, 1e-4, 1e-3
 # blocked dot, bf16: f32 sums in another order than the plain version's
 # float64, on outputs of about sqrt(K) = 14-24 (int8 is held bit for bit)
 TOL_DOT_ABS, TOL_DOT_REL = 1e-3, 1e-4
@@ -223,6 +264,56 @@ def plain_kernels():
         yield
 
 
+@contextmanager
+def unfused(unet):
+    """Run ``unet`` on the plain autograd path (no fused Block at all)."""
+    from hsi_dmgasr_tpu_torch.models.unet import ResnetBlock
+
+    blocks = [m for m in unet.modules() if isinstance(m, ResnetBlock)]
+    unet.fuse_blocks = False
+    for b in blocks:
+        b.fuse = False
+    try:
+        yield
+    finally:
+        unet.fuse_blocks = True
+        for b in blocks:
+            b.fuse = True
+
+
+def divergence(y, ref):
+    """max |y - ref|, and it and the RMS of y - ref over those of ref."""
+    d = (y.float() - ref.float()).abs()
+    ref = ref.float()
+    return {"max_abs": d.max().item(), "max_rel": d.max().item() / ref.abs().max().item(),
+            "rms_rel": (d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()}
+
+
+def within(y, ref, tol):
+    """|y - ref| <= tol + tol * |ref| everywhere."""
+    return bool(((y.float() - ref.float()).abs() <= tol + tol * ref.float().abs()).all())
+
+
+def check_unet(name, unet, x, t, against_unfused=False):
+    """The f32 UNet forward with the kernels against the same forward on
+    their plain versions, elementwise within TOL_UNET, and both against the
+    unfused forward: reported, and with ``against_unfused`` held to
+    TOL_UNET too."""
+    y_kernel = unet(x, t)
+    with plain_kernels():
+        y_plain = unet(x, t)
+    with unfused(unet):
+        y_f32 = unet(x, t)
+    err = divergence(y_kernel, y_plain)
+    err["kernel_vs_unfused"] = divergence(y_kernel, y_f32)
+    err["plain_vs_unfused"] = divergence(y_plain, y_f32)
+    if not within(y_kernel, y_plain, TOL_UNET):
+        raise AssertionError(f"[{name}] full-width UNet kernels vs plain: {err}")
+    if against_unfused and not within(y_kernel, y_f32, TOL_UNET):
+        raise AssertionError(f"[{name}] full-width UNet kernels vs unfused: {err}")
+    return err
+
+
 def dtype_name(dtype):
     import torch
 
@@ -288,12 +379,14 @@ def pick_bound(nbytes, flops):
 
 def bound(sig):
     """Fused Block: each input read once, each output written once,
-    activations in the signature's dtype (4 or 2 bytes), bf16 weights."""
+    activations in the signature's dtype (4 or 2 bytes), bf16 weights. An
+    f32 input's conv is two bf16 products (its activation's hi and lo
+    parts), the time of one at the TF32 rate."""
     (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig
     ct, pix = c + c2, b * h * w
     nbytes = (2 if dt == "bf16" else 4) * pix * (ct + cout * (1 + res + proj))
     nbytes += 2 * (9 + proj) * ct * cout + 4 * (b * h * 2 * (c * sin + c2 * sin2 + cout * emit))
-    return pick_bound(nbytes, 2 * pix * cout * ct * (9 + proj))
+    return pick_bound(nbytes, (2 if dt == "bf16" else 4) * pix * cout * ct * (9 + proj))
 
 
 def bare_launch(fc, args, kw, packed):
@@ -635,25 +728,21 @@ def run_path(name, config, expected, cube, profile):
               "peak_memory_gib": peak_gib, "launches": launches}
     log(f"[{name}] cube seconds (median of 3): {report['cube_seconds']:.4f} {times}")
 
-    # full-width UNet forward, kernels vs plain versions
-    unet = pipe.ddpm.unet
+    # full-width UNet forward, kernels vs plain versions, on the module the
+    # cubes sampled
+    unet = pipe.ddpm.eval_unet
     gen = torch.Generator(device="cuda").manual_seed(4)
     with torch.inference_mode():
         cond = pipe._fold(pipe.encode(cube))
         x = torch.cat([cond, torch.randn(cond.shape, generator=gen, device="cuda")], -1)
         t = torch.full((x.shape[0], 1), 0.5, device="cuda")
-        y_kernel = unet(x, t)
+        unet_err = check_unet(name, unet, x, t)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         unet(x, t)
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
-        with plain_kernels():
-            y_plain = unet(x, t)
-        d = (y_kernel - y_plain).abs()
-        unet_err = {"max_abs": d.max().item(), "max_rel": d.max().item() / y_plain.abs().max().item()}
-        if not bool((d <= TOL_UNET + TOL_UNET * y_plain.abs()).all()):
-            raise AssertionError(f"[{name}] full-width UNet kernels vs plain: {unet_err}")
-    del y_kernel, y_plain, d, x, cond
+    del x, cond
     log(f"[{name}] full-width UNet forward (B=9, 512^2): kernels vs plain {unet_err}, "
         f"forward {fwd_s:.4f} s")
     report.update(unet_forward_err=unet_err, unet_forward_s=fwd_s)
@@ -813,6 +902,303 @@ def run_bench(profile):
     return reports
 
 
+# ------------------------------------------------------------ training
+
+
+def make_train_data(root):
+    """The train_r3 inputs, from a seed: TRAIN_SCENES .mat scenes (key
+    'block') of TRAIN_SCENE_HW^2 x 102, 3 .npy val scenes of VAL_HW^2 x
+    102 (blocky low-rank fields with smooth spectra, plus noise), and a
+    seeded port GAE at full width saved as a state_dict."""
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from hsi_dmgasr_tpu_torch.models.gae import GAE
+    from hsi_dmgasr_tpu_torch.models.networks import init_weights
+
+    rng = np.random.RandomState(0)
+    c = GAE_CFG["n_colors"]
+
+    def scene(hw):
+        fields = rng.rand(hw // 16, hw // 16, 6).repeat(16, 0).repeat(16, 1)
+        spectra = rng.rand(6, c)
+        for _ in range(3):
+            spectra = 0.5 * spectra + 0.25 * (np.roll(spectra, 1, 1) + np.roll(spectra, -1, 1))
+        return (fields @ spectra + 0.05 * rng.rand(hw, hw, c)).astype(np.float32)
+
+    dirs = {k: os.path.join(root, k) for k in ("mat", "npy")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(TRAIN_SCENES):
+        sio.savemat(os.path.join(dirs["mat"], f"scene_{i}.mat"), {"block": scene(TRAIN_SCENE_HW)})
+    for i in range(3):
+        np.save(os.path.join(dirs["npy"], f"scene_{i}.npy"), scene(VAL_HW))
+    gae_kw = {k: GAE_CFG[k] for k in ("n_subs", "n_ovls", "n_colors", "n_feats")}
+    gae = init_weights(GAE(**gae_kw), torch.Generator().manual_seed(0))
+    gae_path = os.path.join(root, "gae.pth")
+    torch.save(gae.state_dict(), gae_path)
+    return dirs, gae_path
+
+
+def train_config(root):
+    """configs/pavia_x4_r3.json through the port's config.parse, with the
+    cuts of this path: fused Blocks at validation, the data roots and the
+    GAE of make_train_data, save and validation at the last step."""
+    from hsi_dmgasr_tpu_torch import config
+
+    dirs, gae_path = make_train_data(root)
+    opt = config.parse(os.path.join(ROOT, "configs", "pavia_x4_r3.json"), phase="train",
+                       experiments_root=os.path.join(root, "exp"))
+    opt["model"]["unet"]["fuse"] = True
+    opt["datasets"]["train"]["dataroot"] = dirs["mat"]
+    opt["datasets"]["val"]["dataroot"] = dirs["npy"]
+    opt["gae"]["checkpoint"] = gae_path
+    for k in ("n_subs", "n_ovls", "n_colors", "n_feats"):
+        opt["gae"][k] = GAE_CFG[k]
+    for k in ("val_freq", "save_checkpoint_freq"):
+        opt["train"][k] = TRAIN_STEPS
+    opt["train"]["print_freq"] = 1
+    return opt
+
+
+def ema_leaves(model):
+    """A few parameters across the depth: first conv, a 128^2 block, the
+    mid attention's qkv, a norm scale, the last conv's bias."""
+    names = [n for n, _ in model.unet.named_parameters()]
+    picks = ("downs.0.weight", "downs.1.res_block.block1.block.3.weight",
+             "mid.0.attn.qkv.weight", "ups.0.res_block.block2.block.0.weight",
+             "final_conv.block.3.bias")
+    missing = [n for n in picks if n not in names]
+    if missing:
+        raise AssertionError(f"[{TRAIN}] no parameters {missing}")
+    return picks
+
+
+def step_against_cpu(opt, state_dict):
+    """One train step at batch 1 on a 64^2 latent pair (full width, dropout
+    0, injected gamma and noise) on the card and on the CPU from the same
+    weights: the loss and every gradient."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
+
+    opt = copy.deepcopy(opt)
+    opt["model"]["unet"]["dropout"] = 0.0
+    opt["path"]["resume_state"] = None
+    gen = torch.Generator().manual_seed(6)
+    batch = {k: torch.randn((1, 64, 64, 3), generator=gen) for k in ("HR", "SR")}
+    gamma = torch.tensor([0.6])
+    noise = torch.randn((1, 64, 64, 3), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = DDPMModel(opt, device=dev)
+        model.unet.load_state_dict(state_dict)
+        t0 = time.perf_counter()
+        loss = model.compute_grads(batch, gamma=gamma, noise=noise)
+        out[dev] = (float(loss), {n: p.grad.detach().cpu() for n, p in
+                                  model.unet.named_parameters()})
+        log(f"[{TRAIN}] one batch-1 64^2 step on {dev}: {time.perf_counter() - t0:.2f} s")
+        del model
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out["cpu"], out["cuda"]
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    gerr = max((g_gpu[n] - g).abs().max().item() for n, g in g_cpu.items())
+    res = {"loss_cpu": loss_cpu, "loss_card": loss_gpu,
+           "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+           "grad_max_abs_err": gerr, "grad_max_abs": gmax}
+    log(f"[{TRAIN}] card vs CPU step: {res}")
+    if res["loss_rel_err"] > TOL_STEP_LOSS or gerr > TOL_STEP_GRAD * gmax:
+        raise AssertionError(f"[{TRAIN}] card step vs CPU step: {res}")
+    return res
+
+
+def run_train(profile):
+    """The training path: configs/pavia_x4_r3.json through the port's
+    driver (``stage2_driver.train``), TRAIN_STEPS steps then one periodic
+    save, one validation and one best save. Counts: 0 before the first
+    step, read when the validation starts (the steps launch no kernel) and
+    when it ends (TRAIN_VAL). Checks every step's loss is finite, the EMA
+    after every step on a few leaves, the save -> fresh DDPMModel ->
+    load_resume round trip bit for bit, every weight's _version moved by
+    one more step (else the fused Block's packed weights go stale) and the
+    fused EMA UNet then against its plain and unfused forwards (both within
+    TOL_UNET), and one step on the card against the CPU's. Times every step
+    (median after 2 warm-up steps) and reads the peak memory of the steps."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.pipeline import DMGASRPipeline
+    from hsi_dmgasr_tpu_torch.train import stage2_driver as drv
+    from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
+    from hsi_dmgasr_tpu_torch.utils.roofline import device_f32_peak, unet_step_ops
+
+    root = os.path.join(ROOT, "build", TRAIN)
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    opt = train_config(root)
+    log(f"[{TRAIN}] data and config: {time.perf_counter() - t0:.1f} s")
+    steps, ema_errs, val, fused_calls, flash_calls = [], [], {}, {}, {}
+    real_step, real_apply = DMGASRPipeline.train_step_from_hr, DDPMModel.apply_gradients
+    real_validate = drv.validate
+
+    def timed_step(self, hr, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = real_step(self, hr, **kw)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t, "loss": float(loss),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        return loss
+
+    def checked_apply(self):
+        names = ema_leaves(self)
+        params = dict(self.unet.named_parameters())
+        ema = dict(self.ema.module.named_parameters())
+        prev = {n: ema[n].detach().clone() for n in names}
+        real_apply(self)
+        worst = 0.0
+        for n in names:
+            want = prev[n] * self.ema.decay + params[n].detach() * (1.0 - self.ema.decay)
+            worst = max(worst, ((ema[n] - want).abs().max() / want.abs().max()).item())
+        ema_errs.append(worst)
+
+    def counted_validate(*args, **kw):
+        torch.cuda.synchronize()
+        val["train_launches"] = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
+        fc.LAUNCHES = fa.LAUNCHES = 0
+        with recording(fused_calls, flash_calls):
+            res = real_validate(*args, **kw)
+        torch.cuda.synchronize()
+        val["launches"] = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
+        return res
+
+    fc.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    bd.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(DMGASRPipeline, "train_step_from_hr", timed_step), \
+            mock.patch.object(DDPMModel, "apply_gradients", checked_apply), \
+            mock.patch.object(drv, "validate", counted_validate):
+        pipe, results = drv.train(opt, seed=0, max_steps=TRAIN_STEPS)
+    ddpm = pipe.ddpm
+    losses = [st["loss"] for st in steps]
+    log(f"[{TRAIN}] {len(steps)} steps, losses {losses}")
+    if len(steps) != TRAIN_STEPS or ddpm.step != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{TRAIN}] {len(steps)} steps ({ddpm.step} updates), losses {losses}")
+    if val.get("train_launches") != {FUSED: 0, FLASH: 0, DOT: 0}:
+        raise AssertionError(f"[{TRAIN}] the train steps launched {val.get('train_launches')}, "
+                             "expected no kernel")
+    recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
+    log(f"[{TRAIN}] validation: {val['launches']} kernel launches ({len(fused_calls)} fused "
+        f"signatures, {recorded} recorded), {results['ave_time']:.4f} s per cube "
+        f"({results['n']} scenes x {results['n_chains']} chains), MPSNR "
+        f"{results['indices']['MPSNR']:.3f}, MPSNR_cc {results['indices_cc']['MPSNR']:.3f}")
+    if val["launches"] != TRAIN_VAL or recorded != TRAIN_VAL:
+        raise AssertionError(f"[{TRAIN}] validation launched {val['launches']} ({recorded} "
+                             f"recorded), expected {TRAIN_VAL}")
+    if not all(math.isfinite(v) for v in (*results["indices"].values(),
+                                          *results["indices_cc"].values())):
+        raise AssertionError(f"[{TRAIN}] validation metrics {results}")
+    if max(ema_errs) > TOL_EMA:
+        raise AssertionError(f"[{TRAIN}] EMA vs its recomputation: {ema_errs}")
+    log(f"[{TRAIN}] EMA vs 0.999 EMA_prev + 0.001 params on {len(ema_leaves(ddpm))} leaves, "
+        f"worst per step: {max(ema_errs):.2e}")
+
+    # timing: the steps after 2 warm-up steps
+    step_s = statistics.median(st["s"] for st in steps[2:])
+    peak_gib = max(st["peak_gib"] for st in steps)
+    n_latents = opt["datasets"]["train"]["batch_size"] * GAE_CFG["G"]
+    size = opt["datasets"]["train"]["l_resolution"] * opt["scale"]  # the HR crop
+    flops = 3 * sum(op.flops for op in unet_step_ops(n_latents, size))
+    peak_tflops = device_f32_peak(torch.cuda.get_device_name(0))
+    report = {"config": "pavia_x4_r3.json", "steps": TRAIN_STEPS, "step_seconds": step_s,
+              "step_times": [st["s"] for st in steps], "losses": losses,
+              "latents_per_second": n_latents / step_s, "peak_memory_gib": peak_gib,
+              "step_tflop": flops / 1e12, "f32_peak_tflops": peak_tflops,
+              "roofline_share_f32": flops / step_s / (peak_tflops * 1e12),
+              "val_cube_seconds": results["ave_time"],
+              "val_results": json.loads(json.dumps(results, default=float)),
+              "ema_worst_rel_err": max(ema_errs), "launches": val["launches"]}
+    log(f"[{TRAIN}] ms per train step (median of {len(steps) - 2} after 2 warm-up): "
+        f"{step_s * 1e3:.2f} ({n_latents} latents of {size}^2 from "
+        f"{opt['datasets']['train']['batch_size']} HR crops)")
+    log(f"[{TRAIN}] latents per second {report['latents_per_second']:.2f}, peak memory "
+        f"{peak_gib:.2f} GiB")
+    log(f"[{TRAIN}] roofline share: 3 x {flops / 3e12:.3f} TFLOP forward over the step against "
+        f"the f32 peak {peak_tflops} TFLOP/s: {report['roofline_share_f32']:.4f}")
+    log(f"[{TRAIN}] seconds per validation cube ({VAL_HW}^2 x 102): {results['ave_time']:.4f}")
+
+    # save -> fresh DDPMModel -> load_resume, bit for bit
+    ckpt = os.path.join(opt["path"]["checkpoint"], f"I{TRAIN_STEPS}_E1")
+    opt_back = copy.deepcopy(opt)
+    opt_back["path"]["resume_state"] = ckpt
+    back = DDPMModel(opt_back, seed=1)
+    same = ((back.begin_step, back.begin_epoch, back.step) == (TRAIN_STEPS, 1, TRAIN_STEPS)
+            and all(torch.equal(back.unet.state_dict()[k], v)
+                    for k, v in ddpm.unet.state_dict().items())
+            and all(torch.equal(back.ema.state_dict()[k], v)
+                    for k, v in ddpm.ema.state_dict().items())
+            and back.scheduler.state_dict() == ddpm.scheduler.state_dict())
+    sa, sb = ddpm.optimizer.state_dict(), back.optimizer.state_dict()
+    same = same and sa["param_groups"] == sb["param_groups"] and all(
+        sb["state"][i][k].device == v.device and torch.equal(sb["state"][i][k], v)
+        for i, st in sa["state"].items() for k, v in st.items())
+    if not same:
+        raise AssertionError(f"[{TRAIN}] {ckpt} did not load back bit for bit")
+    log(f"[{TRAIN}] save -> load_resume: params, Adam, schedule and EMA equal bit for bit, "
+        f"begin_step {back.begin_step}, begin_epoch {back.begin_epoch}")
+    del back, sa, sb
+
+    # one more step after the validation packed the EMA weights: Adam and
+    # the EMA update every weight in place, so each weight's _version (a
+    # part of the fused Block's pack key) must move, or the next fused
+    # forward would run on stale packed weights; then the fused EMA UNet
+    # against its plain-kernel and unfused forwards
+    unet = ddpm.eval_unet
+    if unet is not ddpm.ema.module:
+        raise AssertionError(f"[{TRAIN}] eval does not sample the EMA weights")
+    weights = list(ddpm.unet.parameters()) + list(unet.parameters())
+    versions = [w._version for w in weights]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    hr = torch.rand((4, size, size, GAE_CFG["n_colors"]), generator=gen, device="cuda")
+    pipe.train_step_from_hr(hr, scale=opt["scale"])
+    stale = sum(w._version == v for w, v in zip(weights, versions))
+    if stale:
+        raise AssertionError(f"[{TRAIN}] {stale} of {len(weights)} weights kept their _version "
+                             "through a step: packed weights would go stale")
+    with torch.inference_mode():
+        x = torch.randn((GAE_CFG["G"], VAL_HW, VAL_HW, 6), generator=gen, device="cuda")
+        t = torch.full((x.shape[0], 1), 0.5, device="cuda")
+        ema_fwd = check_unet(TRAIN, unet, x, t, against_unfused=True)
+    log(f"[{TRAIN}] after one more step every weight's _version moved ({len(weights)} live and "
+        f"EMA); the fused EMA UNet (B=9, {VAL_HW}^2) vs plain: {ema_fwd}")
+    report["ema_fused_vs_plain"] = ema_fwd
+    del x
+
+    report["card_vs_cpu_step"] = step_against_cpu(opt, ddpm.unet.state_dict())
+
+    if profile:
+        batch = opt["datasets"]["train"]["batch_size"]
+        hr = torch.rand((batch, size, size, GAE_CFG["n_colors"]), generator=gen, device="cuda")
+        degrade = pipe._degrade_fn((size, size), opt["scale"])
+
+        def encode(sr):
+            with torch.no_grad():
+                return {"HR": pipe._fold(pipe._encode(hr)), "SR": pipe._fold(pipe._encode(sr))}
+
+        report["profile"] = profile_cube(
+            lambda: pipe.train_step_from_hr(hr, scale=opt["scale"]),
+            (("degrade", lambda _: degrade(hr)), ("encode", encode),
+             ("unet_fwd_bwd", lambda z: ddpm.compute_grads(z)),
+             ("adam_ema", lambda _: ddpm.apply_gradients())))
+        log_profile(TRAIN, report["profile"])
+    del pipe, ddpm, unet
+    torch.cuda.empty_cache()
+    return report, fused_calls, flash_calls
+
+
 def run_probe():
     """The int8 probe's main path: the launch counts set to 0, the probe
     run once, the exact counts read. Each case and dtype makes one eager
@@ -893,6 +1279,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from hsi_dmgasr_tpu_torch.device import use_f32_policy
     from hsi_dmgasr_tpu_torch.kernels import build
     from hsi_dmgasr_tpu_torch.tools import microbench_int8 as mb
 
@@ -900,8 +1287,7 @@ def main():
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    use_f32_policy()
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     os.makedirs(OUT_DIR, exist_ok=True)
 
@@ -922,6 +1308,7 @@ def main():
     del cube
     torch.cuda.empty_cache()
     runs.update(run_bench(args.profile))
+    runs[TRAIN] = run_train(args.profile)
     fused_sigs, flash_sigs = {}, {}
     for path, (path_report, fused_calls, flash_calls) in runs.items():
         report["paths"][path] = path_report
@@ -978,9 +1365,11 @@ def main():
     for path in UNET_PATHS:
         levels = {}
         for r in fused_rows:
+            n = r["counts"][path]
+            if not n:
+                continue
             lv = levels.setdefault(r["level"], dict.fromkeys(
                 ("launches", "ms", "kernel_ms", "bound_ms", "plain_ms", "library_ms"), 0))
-            n = r["counts"][path]
             lv["launches"] += n
             for key in ("ms", "kernel_ms", "bound_ms", "plain_ms", "library_ms"):
                 lv[key] += r[key] * n
@@ -988,7 +1377,7 @@ def main():
         for name, lv in levels.items():
             lv["bound_frac"] = lv["bound_ms"] / lv["ms"]
             lv["vs_library"] = lv["ms"] / lv["library_ms"]
-            log(f"[{path}] fused per cube at {name}: {lv['launches']} launches, kernel "
+            log(f"[{path}] fused per counted run at {name}: {lv['launches']} launches, kernel "
                 f"{lv['ms']:.3f} ms (alone {lv['kernel_ms']:.3f}), bound {lv['bound_ms']:.3f}, "
                 f"plain {lv['plain_ms']:.3f}, cudnn {lv['library_ms']:.3f}, of bound "
                 f"{lv['bound_frac']:.3f}, x cudnn {lv['vs_library']:.2f}")
@@ -1019,7 +1408,7 @@ def main():
     report["kernels"] = entries
     if args.profile:
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:
-            json.dump({p: report["paths"][p].pop("profile") for p in (*PATHS, BENCH)}, f,
+            json.dump({p: report["paths"][p].pop("profile") for p in (*PATHS, BENCH, TRAIN)}, f,
                       indent=1)
     report["script_s"] = time.perf_counter() - t_script
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

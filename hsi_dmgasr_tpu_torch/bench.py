@@ -47,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import resolve_device, use_f32_policy
 from .models.gae import GAE, group_indices
 from .models.networks import diffusion_for_phase, init_weights
 from .models.unet import UNet
@@ -274,9 +274,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    # an f32 run is f32: no TF32 in cuDNN's convolutions or in matmuls
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    use_f32_policy()
     print(json.dumps(run(args)))
 
 

@@ -5,16 +5,24 @@
 // _source_matmuls). It computes, per batch b, output row h, column w and
 // output channel n:
 //
-//   out = conv3x3_SAME(bf16(swish(bf16(x) * scale[b] + shift[b])), W)
-//         + bias [+ time_bias[b]] [+ bf16(residual)]
+//   out = conv3x3_SAME(swish(x * scale[b] + shift[b]), bf16(W))
+//         + bias [+ time_bias[b]] [+ residual]
 //
 // over the channel concat [x, x2] (the second source is read in place,
-// the concat is never materialised), with bf16 operands and f32
-// accumulation. Out-of-image taps contribute zero in ACTIVATED space.
-// Optional outputs: per-row [sum, sumsq] over W of the f32 result
-// (stats, (B, H, 2, Cout)), and the 1x1 projection of the RAW bf16
-// centre tap of [x, x2] plus its bias (res_out). GroupNorm scale/shift
-// per (b, c) are folded on the host from the moments.
+// the concat is never materialised), on bf16 tensor cores with f32
+// accumulation. The weights are bf16. The activation is bf16 where x is
+// bf16; where x is f32 it is carried as a pair of bf16 operands, hi =
+// bf16(a) and lo = bf16(a - hi) (16 bits of mantissa), and the conv is
+// the two products hi x W + lo x W: only the weights are rounded, while
+// x and the residual are read in f32. (Rounding x, the activation and the
+// residual to bf16, as the TPU kernel does, moved a full-width f32 UNet
+// forward by 1 % of its largest output over its 55 Blocks, and two
+// correct implementations apart by as much.) Out-of-image taps contribute zero
+// in ACTIVATED space. Optional outputs: per-row [sum, sumsq] over W of the
+// f32 result (stats, (B, H, 2, Cout)), and the 1x1 projection of the RAW
+// centre tap of [x, x2] (split the same way where f32) plus its bias
+// (res_out). GroupNorm scale/shift per (b, c) are folded on the host from
+// the moments.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at the
 // 512^2 levels (C_total 64..192, Cout 64) bytes: the f32 input, output
@@ -23,7 +31,8 @@
 //
 // Design: an implicit GEMM, M = output pixels, N = Cout, K = 9 * C_total,
 // on mma.sync m16n8k16 bf16 -> f32 fed by ldmatrix from 80-byte padded
-// shared rows (conflict free). 8 warps, two CTAs per SM.
+// shared rows (conflict free). 8 warps, two CTAs per SM where the input
+// is bf16, one where it is f32 (the lo windows take the room).
 //  * Tiles, chosen on the host from Cout: 128 pixels (4 rows of 32) x 128
 //    channels where Cout > 64 (every level below 512^2), 256 pixels (4
 //    rows of 64) x 64 channels where Cout <= 64, and a thin 256 x 8 tile
@@ -38,7 +47,8 @@
 //    through registers and are always in flight. Chunk 0's window comes
 //    through 9 leading stages that only stage it.
 //  * The (R + 2) x (BW + 2) window is double buffered in shared memory,
-//    normalised, swished and rounded to bf16: each tap is a shifted view,
+//    normalised, swished and rounded to bf16 (to a hi and a lo window for
+//    f32 input, whose K steps take two MMAs): each tap is a shifted view,
 //    and each input element is activated once per CTA. After a step's
 //    MMAs, every thread activates its units of the staged ninth into the
 //    other buffer. Out-of-image positions are written as zeros after the
@@ -54,11 +64,12 @@
 //    added in f32 and the output stored in 16-byte rows; per-row stats are
 //    summed in shared memory, then one atomicAdd pair per (tile row,
 //    channel).
-// What holds it now (tools/fused_conv_ablation.py, H100, kernel alone at
-// B=9 128^2 256 -> 256, bound 0.176 ms): the MMAs alone take 0.447 ms,
-// the ring's copies with the barrier alone 0.488 ms, and all of it 0.949
-// ms. The parts add up instead of overlapping, because every warp moves
-// through copies, MMAs and activation together between two barriers. A
+// What held it (tools/fused_conv_ablation.py, H100, kernel alone at B=9
+// 128^2 256 -> 256 in f32 before its second MMA, bound 0.176 ms): the
+// MMAs alone took 0.447 ms, the ring's copies with the barrier alone
+// 0.488 ms, and all of it 0.949 ms. The parts add up instead of
+// overlapping, because every warp moves through copies, MMAs and
+// activation together between two barriers. A
 // 256-pixel tile (less weight traffic) at one CTA per SM, and producer
 // warps feeding MMA warps through mbarriers at one CTA per SM, were both
 // slower. Not yet done (later work): wgmma with A from registers, TMA
@@ -76,7 +87,7 @@ constexpr int KC = 32;              // channels per K chunk
 constexpr int KP = KC + 8;          // padded smem row: 80 bytes
 constexpr int ROWB = KP * 2;        // bytes of one padded row
 
-constexpr int NTHREADS = 256;       // 8 warps, two CTAs per SM
+constexpr int NTHREADS = 256;       // 8 warps, two CTAs per SM (bf16)
 constexpr int STAGES = 4;           // ring depth
 
 // warp grid WM x WN, each warp MT m16 tiles x NT n8 tiles; tile rows of
@@ -110,10 +121,6 @@ struct Params {
   int R, BW, nWseg, npix_stage, part;
 };
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -121,6 +128,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// (a, b) as bf16 pairs hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  const float2 h = unpack_bf16(hi);
+  lo = pack_bf16(a - h.x, b - h.y);
 }
 
 __device__ __forceinline__ float swish(float a) {
@@ -169,11 +183,13 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src
 }
 
 // One K = 32 step of a warp tile: A rows at a_base + a_off[mt] (elements),
-// B rows at b_base + b_off[]; acc[mt][nt] += A x B^T.
-template <int MT, int NT>
+// B rows at b_base + b_off[]; acc[mt][nt] += A x B^T. With SPLIT, A is
+// the pair of windows at a_base and a_base + lo_bytes: acc += (hi + lo) x B^T.
+template <int MT, int NT, bool SPLIT>
 __device__ __forceinline__ void warp_step(float (&acc)[MT][NT][4], uint32_t a_base,
                                           const int (&a_off)[MT], uint32_t b_base,
-                                          const int (&b_off)[(NT + 1) / 2]) {
+                                          const int (&b_off)[(NT + 1) / 2],
+                                          uint32_t lo_bytes) {
   uint32_t thin[4];
   if (NT == 1) ldmatrix_x4(thin, b_base + 2u * b_off[0]);  // k 0..31 of 8 rows
 #pragma unroll
@@ -199,28 +215,35 @@ __device__ __forceinline__ void warp_step(float (&acc)[MT][NT][4], uint32_t a_ba
       ldmatrix_x4(a, a_base + 2u * (a_off[mt] + ks));
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      if (SPLIT) {
+        ldmatrix_x4(a, a_base + lo_bytes + 2u * (a_off[mt] + ks));
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      }
     }
   }
 }
 
 // Activate one 16-byte unit of raw input (4 f32 or 8 bf16 channels) into
-// the bf16 window.
+// the bf16 window: 4 f32 channels into its hi (a) and lo (a + lo) windows.
 __device__ __forceinline__ void activate(const uint4& raw, bool inimg, const float* sc,
-                                         const float* sh, __nv_bfloat16* a, float) {
-  uint2 av = make_uint2(0u, 0u);
+                                         const float* sh, __nv_bfloat16* a, int lo, float) {
+  uint2 hi = make_uint2(0u, 0u), lw = hi;
   if (inimg) {
-    const float4 v = make_float4(bf16r(__uint_as_float(raw.x)), bf16r(__uint_as_float(raw.y)),
-                                 bf16r(__uint_as_float(raw.z)), bf16r(__uint_as_float(raw.w)));
     const float4 s4 = __ldg(reinterpret_cast<const float4*>(sc));
     const float4 t4 = __ldg(reinterpret_cast<const float4*>(sh));
-    av.x = pack_bf16(swish(v.x * s4.x + t4.x), swish(v.y * s4.y + t4.y));
-    av.y = pack_bf16(swish(v.z * s4.z + t4.z), swish(v.w * s4.w + t4.w));
+    split_bf16(swish(__uint_as_float(raw.x) * s4.x + t4.x),
+               swish(__uint_as_float(raw.y) * s4.y + t4.y), hi.x, lw.x);
+    split_bf16(swish(__uint_as_float(raw.z) * s4.z + t4.z),
+               swish(__uint_as_float(raw.w) * s4.w + t4.w), hi.y, lw.y);
   }
-  *reinterpret_cast<uint2*>(a) = av;
+  *reinterpret_cast<uint2*>(a) = hi;
+  *reinterpret_cast<uint2*>(a + lo) = lw;
 }
 
 __device__ __forceinline__ void activate(const uint4& raw, bool inimg, const float* sc,
-                                         const float* sh, __nv_bfloat16* a, __nv_bfloat16) {
+                                         const float* sh, __nv_bfloat16* a, int,
+                                         __nv_bfloat16) {
   uint4 av = make_uint4(0u, 0u, 0u, 0u);
   if (inimg) {
     const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
@@ -238,14 +261,18 @@ __device__ __forceinline__ void activate(const uint4& raw, bool inimg, const flo
   *reinterpret_cast<uint4*>(a) = av;
 }
 
-// Round one 16-byte unit of raw input to bf16 (the projection's operand).
-__device__ __forceinline__ void round_raw(const uint4& raw, __nv_bfloat16* a, float) {
-  *reinterpret_cast<uint2*>(a) =
-      make_uint2(pack_bf16(__uint_as_float(raw.x), __uint_as_float(raw.y)),
-                 pack_bf16(__uint_as_float(raw.z), __uint_as_float(raw.w)));
+// One 16-byte unit of raw input as the projection's operand: 8 bf16
+// channels as they are, 4 f32 channels split into hi (a) and lo (a + lo).
+__device__ __forceinline__ void round_raw(const uint4& raw, __nv_bfloat16* a, int lo, float) {
+  uint2 hi, lw;
+  split_bf16(__uint_as_float(raw.x), __uint_as_float(raw.y), hi.x, lw.x);
+  split_bf16(__uint_as_float(raw.z), __uint_as_float(raw.w), hi.y, lw.y);
+  *reinterpret_cast<uint2*>(a) = hi;
+  *reinterpret_cast<uint2*>(a + lo) = lw;
 }
 
-__device__ __forceinline__ void round_raw(const uint4& raw, __nv_bfloat16* a, __nv_bfloat16) {
+__device__ __forceinline__ void round_raw(const uint4& raw, __nv_bfloat16* a, int,
+                                          __nv_bfloat16) {
   *reinterpret_cast<uint4*>(a) = raw;
 }
 
@@ -283,12 +310,14 @@ gn_swish_conv3x3_kernel(const Params p) {
   constexpr int MT = Tl::MT, NT = Tl::NT, WM = Tl::WM, BM = Tl::BM, BN = Tl::BN;
   constexpr int VIN = 16 / sizeof(T);   // input channels per 16-byte unit
   constexpr int UPP = KC / VIN;         // units per window pixel
+  constexpr bool SPLIT = sizeof(T) == 4;  // f32 input: hi and lo windows
+  constexpr int NWIN = SPLIT ? 4 : 2;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int SP = p.npix_stage;
   const uint32_t smem_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const uint32_t act_s = smem_s;                           // 2 x SP rows
-  const uint32_t ring_s = act_s + 2 * SP * ROWB;           // STAGES x (BN rows, raw part)
+  const uint32_t act_s = smem_s;  // 2 x SP rows, then 2 x SP lo rows if SPLIT
+  const uint32_t ring_s = act_s + NWIN * SP * ROWB;        // STAGES x (BN rows, raw part)
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
 
   const int tid = threadIdx.x;
@@ -389,7 +418,7 @@ gn_swish_conv3x3_kernel(const Params p) {
       int pix, q, hh, ww;
       unit_pos(u, pix, q, hh, ww);
       const bool inimg = hh >= 0 && hh < H && ww >= 0 && ww < W;
-      activate(raw[i], inimg, sc + q, sh + q, abuf + pix * KP + q, T());
+      activate(raw[i], inimg, sc + q, sh + q, abuf + pix * KP + q, 2 * SP * KP, T());
     }
   };
 
@@ -410,8 +439,9 @@ gn_swish_conv3x3_kernel(const Params p) {
     const int c1 = st / 9, tap = st - c1 * 9;
     if (c1 > 0) {
       const int j = c1 - 1, dy = tap / 3, dx = tap - dy * 3;
-      warp_step<MT, NT>(acc, act_s + (j & 1) * SP * ROWB + (dy * SW + dx) * ROWB, a_off,
-                        ring_s + (st % STAGES) * stage_bytes, b_off);
+      warp_step<MT, NT, SPLIT>(acc, act_s + (j & 1) * SP * ROWB + (dy * SW + dx) * ROWB,
+                               a_off, ring_s + (st % STAGES) * stage_bytes, b_off,
+                               2 * SP * ROWB);
     }
     if (c1 < J) transform(st);
   }
@@ -512,7 +542,7 @@ gn_swish_conv3x3_kernel(const Params p) {
         for (int k = 0; k < VO; ++k) {
           v[k] = tile[m * TP + nl + (nl + k < BN ? k : 0)] + bk[k];
           if (p.tb) v[k] += tk[k];
-          if (residual) v[k] += bf16r(rv[e][k]);
+          if (residual) v[k] += rv[e][k];
         }
         if (full) {
           store_vec(out + off[e], v);
@@ -553,10 +583,11 @@ gn_swish_conv3x3_kernel(const Params p) {
     // ---- the folded 1x1 projection: a second, short K loop over the
     // chunks' raw centre pixels, read again from memory (once, no halo),
     // so its accumulators are the conv's, now free. Two stages, each the
-    // chunk's projection weights and its raw pixels, then rounded to bf16.
+    // chunk's projection weights and its raw pixels, then made bf16
+    // operands (a hi and a lo one where f32).
     constexpr int CU = BM * UPP;                        // raw units per chunk
     constexpr uint32_t PSTAGE = BN * ROWB + CU * 16;
-    const uint32_t pa_s = smem_s + 2 * PSTAGE;          // bf16 operand, BM rows
+    const uint32_t pa_s = smem_s + 2 * PSTAGE;          // bf16 operand, BM (+ BM lo) rows
     __nv_bfloat16* pa = reinterpret_cast<__nv_bfloat16*>(smem + 2 * PSTAGE);
     auto load_proj = [&](int j) {
       const uint32_t slot = smem_s + (j & 1) * PSTAGE;
@@ -585,10 +616,10 @@ gn_swish_conv3x3_kernel(const Params p) {
       const uint4* raw = reinterpret_cast<const uint4*>(smem + (j & 1) * PSTAGE + BN * ROWB);
       for (int u = tid; u < CU; u += NTHREADS) {
         const int m = u / UPP;
-        round_raw(raw[u], pa + m * KP + (u - m * UPP) * VIN, T());
+        round_raw(raw[u], pa + m * KP + (u - m * UPP) * VIN, BM * KP, T());
       }
       __syncthreads();
-      warp_step<MT, NT>(acc, pa_s, r_off, smem_s + (j & 1) * PSTAGE, b_off);
+      warp_step<MT, NT, SPLIT>(acc, pa_s, r_off, smem_s + (j & 1) * PSTAGE, b_off, BM * ROWB);
     }
     __syncthreads();
     acc_to_tile(acc);
@@ -621,6 +652,7 @@ template <typename T, class Tl, bool RES>
 int launch(Params p, cudaStream_t stream) {
   constexpr int BM = Tl::BM, BN = Tl::BN;
   constexpr int UPP = KC / (16 / (int)sizeof(T));
+  constexpr int NWIN = sizeof(T) == 4 ? 4 : 2;  // windows: hi (and lo) x 2
   p.BW = p.W >= Tl::MAX_BW ? Tl::MAX_BW : (p.W + 15) / 16 * 16;
   p.R = BM / p.BW;
   p.nWseg = (p.W + p.BW - 1) / p.BW;
@@ -629,10 +661,10 @@ int launch(Params p, cudaStream_t stream) {
   const int nH = (p.H + p.R - 1) / p.R;
   if (nH * p.nWseg > 65535 || p.B > 65535) return (int)cudaErrorInvalidValue;
 
-  size_t main_bytes = (size_t)(2 * p.npix_stage + STAGES * BN) * ROWB + STAGES * p.part * 16;
+  size_t main_bytes = (size_t)(NWIN * p.npix_stage + STAGES * BN) * ROWB + STAGES * p.part * 16;
   const size_t epi_bytes = (size_t)(BM * (BN + 4) + p.R * 2 * BN) * 4;
   size_t smem = main_bytes > epi_bytes ? main_bytes : epi_bytes;
-  const size_t proj_bytes = (size_t)2 * (BN * ROWB + BM * UPP * 16) + BM * ROWB;
+  const size_t proj_bytes = (size_t)2 * (BN * ROWB + BM * UPP * 16) + NWIN / 2 * BM * ROWB;
   if (RES && proj_bytes > smem) smem = proj_bytes;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
 

@@ -1,13 +1,19 @@
-"""Conditional Gaussian diffusion: the SR3 reverse chain.
+"""Conditional Gaussian diffusion: the SR3 training loss and reverse chain.
 
-Port of the sampling half of ``hsi_dmgasr_tpu/diffusion/gaussian.py``
-(reference sr3_modules/diffusion.py:142-220). Schedule buffers are f64
+Port of the conditional half of ``hsi_dmgasr_tpu/diffusion/gaussian.py``
+(reference sr3_modules/diffusion.py:142-250). Schedule buffers are f64
 numpy computed once; each step reads its scalars as f32, as the JAX
 package does. The chain is a Python loop of ``_step`` calls.
 
+Training (``p_losses``) keeps the continuous-gamma trick: one shared
+t ~ U{1..T} per batch, then a per-sample gamma ~ U[sqrt(acp_{t-1}),
+sqrt(acp_t)], on which the UNet is conditioned; the loss is the l1 or
+l2 mean per sample, weighted per ``loss_weight``, then averaged.
+
 Noise comes from an explicit ``torch.Generator``; ``x_init`` and
 ``noise_seq`` (T, *shape, ordered t = T-1..0) replace the drawn
-Gaussians for deterministic replay, e.g. against the JAX package.
+Gaussians of the chain, and ``gamma`` and ``noise`` those of the loss,
+for deterministic replay, e.g. against the JAX package.
 
 The denoise function signature is ``denoise_fn(x, noise_level) -> eps``
 where x already carries the conditioning concat. Only the conditional
@@ -31,8 +37,12 @@ from .schedules import DiffusionSchedule
 class GaussianDiffusion:
     """Bundles a schedule with the reverse-chain math; holds no weights."""
 
-    def __init__(self, schedule: DiffusionSchedule):
+    def __init__(self, schedule: DiffusionSchedule, loss_type="l1", loss_weight=None):
+        """``loss_weight``: None (the reference's unweighted mean) or
+        ("min_snr", cap), w = min(SNR, cap) / SNR with SNR = g^2 / (1 - g^2)."""
         self.schedule = schedule
+        self.loss_type = loss_type
+        self.loss_weight = loss_weight
         f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
         self._sacp_prev = f32(schedule.sqrt_alphas_cumprod_prev)
         self._srac = f32(schedule.sqrt_recip_alphas_cumprod)
@@ -42,9 +52,51 @@ class GaussianDiffusion:
         self._sigma = np.exp(np.float32(0.5) * f32(schedule.posterior_log_variance_clipped))
 
     def q_sample(self, x_start, continuous_sqrt_alpha_cumprod, noise):
-        """g x0 + sqrt(1 - g^2) eps (diffusion.py:213-220)."""
+        """g x0 + sqrt(1 - g^2) eps (diffusion.py:213-220); g broadcasts
+        over trailing dims."""
         g = continuous_sqrt_alpha_cumprod
         return g * x_start + (1.0 - g ** 2) ** 0.5 * noise
+
+    def _loss_w(self, gamma):
+        """Per-sample weight from gamma; shape-preserving."""
+        if self.loss_weight is None:
+            return torch.ones_like(gamma)
+        kind, cap = self.loss_weight
+        if kind == "min_snr":
+            g2 = (gamma.float() ** 2).clamp(1e-12, 1 - 1e-12)
+            snr = g2 / (1.0 - g2)
+            return torch.clamp(cap / snr, max=1.0)
+        raise NotImplementedError(self.loss_weight)
+
+    def p_losses(self, denoise_fn, x_hr, x_sr, generator=None, gamma=None, noise=None):
+        """Continuous-gamma denoising loss (diffusion.py:222-250) of the
+        target ``x_hr`` (B, H, W, C) conditioned on ``x_sr``, which is
+        concatenated first (torch.cat([SR, noisy]), diffusion.py:247).
+        ``gamma`` (B,) and ``noise`` replace the drawn ones; t, gamma and
+        noise are drawn from ``generator`` in that order."""
+        b, dev = x_hr.shape[0], x_hr.device
+        if gamma is None:
+            # drawn and gathered on the device: no host sync per step
+            t = torch.randint(1, self.schedule.num_timesteps + 1, (), generator=generator,
+                              device=dev)
+            sacp = torch.as_tensor(self._sacp_prev, device=dev)
+            lo, hi = sacp[t - 1], sacp[t]
+            u = torch.rand((b,), generator=generator, dtype=torch.float32, device=dev)
+            gamma = u * (hi - lo) + lo
+        gamma = torch.as_tensor(gamma, dtype=torch.float32, device=dev)
+        if noise is None:
+            noise = torch.randn(x_hr.shape, generator=generator, dtype=x_hr.dtype, device=dev)
+        noise = torch.as_tensor(noise, dtype=x_hr.dtype, device=dev)
+        x_noisy = self.q_sample(x_hr, gamma[:, None, None, None], noise)
+        eps_pred = denoise_fn(torch.cat([x_sr, x_noisy], -1), gamma[:, None])
+        err = noise - eps_pred
+        if self.loss_type == "l1":
+            per = err.abs().mean((1, 2, 3))
+        elif self.loss_type == "l2":
+            per = (err ** 2).mean((1, 2, 3))
+        else:
+            raise NotImplementedError(self.loss_type)
+        return (self._loss_w(gamma) * per).mean()
 
     def _step(self, denoise_fn, x, t, cond, noise=None, generator=None):
         """One reverse step == reference p_sample (diffusion.py:142-175).

@@ -8,7 +8,8 @@ mapped to its flax path by the port's own copy of the GAE and SR3 UNet
 rules of ``hsi_dmgasr_tpu/io/convert_torch.py:torch_key_to_flax_path``,
 and the array is brought back to torch layout (HWIO -> OIHW conv
 kernels, (in, out) -> (out, in) linear kernels, GroupNorm ``scale`` ->
-``weight``).
+``weight``). ``export_jax_params`` is its inverse: a module's weights as
+the flat flax-path dict of numpy arrays, in the JAX layouts.
 """
 
 from __future__ import annotations
@@ -69,6 +70,13 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _flax_path(key, like):
+    path = torch_key_to_flax_path(key)
+    if like.ndim == 1 and path[-1] == "kernel":
+        path = path[:-1] + ("scale",)  # GroupNorm weight
+    return path
+
+
 def _to_torch_layout(arr, like):
     if arr.ndim == 4:
         arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -89,9 +97,7 @@ def load_jax_params(module, flax_params):
     used = set()
     new = {}
     for key, like in sd.items():
-        path = torch_key_to_flax_path(key)
-        if like.ndim == 1 and path[-1] == "kernel":
-            path = path[:-1] + ("scale",)  # GroupNorm weight
+        path = _flax_path(key, like)
         if path not in flat:
             raise KeyError(f"{key}: no JAX param at {'/'.join(path)}")
         used.add(path)
@@ -101,6 +107,33 @@ def load_jax_params(module, flax_params):
         raise KeyError(f"JAX params without a module key: {unused[:5]}")
     module.load_state_dict(new)
     return module
+
+
+def export_jax_params(module):
+    """``module``'s weights as ``{flax path tuple: f32 numpy array}``, the
+    layouts of the JAX package (OIHW -> HWIO conv kernels, (out, in) ->
+    (in, out) linear kernels, GroupNorm ``weight`` -> ``scale``): the
+    inverse of ``load_jax_params``."""
+    flat = {}
+    for key, v in module.state_dict().items():
+        arr = v.detach().float().cpu().numpy()
+        if arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif arr.ndim == 2:
+            arr = arr.T  # (out, in) -> (in, out)
+        flat[_flax_path(key, v)] = np.ascontiguousarray(arr)
+    return flat
+
+
+def unflatten(flat):
+    """``{path tuple: array}`` -> nested dicts."""
+    tree = {}
+    for path, arr in flat.items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
+    return tree
 
 
 def load_state_dict(module, state_dict, strict=True):
@@ -125,15 +158,11 @@ def load_state_dict(module, state_dict, strict=True):
 def unflatten_npz(path):
     """An ``export_params_npz`` file (flattened ``/`` keys, float16
     leaves) -> nested dicts of float32 arrays."""
-    tree = {}
+    flat = {}
     with np.load(path) as z:
         for key in z.files:
             arr = z[key]
             if np.issubdtype(arr.dtype, np.floating):
                 arr = arr.astype(np.float32)
-            *parents, leaf = key.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = arr
-    return tree
+            flat[tuple(key.split("/"))] = arr
+    return unflatten(flat)

@@ -4,12 +4,17 @@ Port of ``hsi_dmgasr_tpu/kernels/fused_conv.py:gn_swish_conv3x3``. The
 function is the same; the layout is Hopper's, not the TPU's (no W-pair
 packing, no dx packing, no padded Cout):
 
-  out = conv3x3_SAME(bf16(swish(GN(bf16(x) || bf16(x2))))) + bias
-        [+ time_bias[b]] [+ bf16(residual)]
+  out = conv3x3_SAME(swish(GN(x || x2)), bf16(kernel)) + bias
+        [+ time_bias[b]] [+ residual]
 
 with optional per-row output moments (``emit_stats``) and the folded 1x1
 projection of the raw input (``res_kernel``). Returns
-``out[, stats][, res]`` as the JAX function does.
+``out[, stats][, res]`` as the JAX function does. The weights are bf16;
+the activation is bf16 for bf16 x and kept in f32 for f32 x (the kernel
+carries it as two bf16 operands, hi and lo), where the TPU kernel rounds
+x, the activation and the residual to bf16 whatever x's dtype: over the
+55 Blocks of a full-width f32 UNet those roundings moved the output by
+1 % of its largest value.
 
 Host side (plain torch, XLA in JAX): the GroupNorm moments come from
 ``stats_in`` (per-row [sum, sumsq] chained from the previous Block) or
@@ -19,8 +24,8 @@ var = E[x^2] - mean^2 clamped at 0, exactly as ``_scale_shift`` does.
 Device side: ``csrc/fused_conv.cu`` (CUDA C++ for sm_90a, bound with
 ctypes). ``gn_swish_conv3x3`` launches it for CUDA tensors and raises
 on what it does not take; for CPU tensors it runs
-``gn_swish_conv3x3_plain``, the plain PyTorch version that mirrors the
-kernel's bf16 roundings. ``LAUNCHES`` counts kernel launches.
+``gn_swish_conv3x3_plain``, the plain PyTorch version with the kernel's
+bf16 roundings. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -92,14 +97,17 @@ def gn_swish_conv3x3_plain(x, gn_scale, gn_bias, kernel, bias, time_bias=None,
                            residual=None, x2=None, stats_in=None, num_groups=32,
                            eps=1e-5, emit_stats=False, res_kernel=None,
                            res_bias=None, stats_in2=None):
-    """The kernel's function in plain PyTorch, with its bf16 roundings."""
+    """The kernel's function in plain PyTorch, with its bf16 roundings:
+    the weights, and the activation where x is bf16."""
     c = x.shape[-1]
+    half = x.dtype == torch.bfloat16
     scale, shift = gn_scale_shift(x, gn_scale, gn_bias, x2, stats_in,
                                   stats_in2, num_groups, eps)
 
     def act(v, sc, sh):
-        a = _bf16(v) * sc[:, None, None, :] + sh[:, None, None, :]
-        return _bf16(a * torch.sigmoid(a))
+        a = v.float() * sc[:, None, None, :] + sh[:, None, None, :]
+        a = a * torch.sigmoid(a)
+        return _bf16(a) if half else a
 
     a = act(x, scale[:, :c], shift[:, :c])
     if x2 is not None:
@@ -110,12 +118,12 @@ def gn_swish_conv3x3_plain(x, gn_scale, gn_bias, kernel, bias, time_bias=None,
     if time_bias is not None:
         out = out + time_bias.float()[:, None, None, :]
     if residual is not None:
-        out = out + _bf16(residual)
+        out = out + residual.float()
     results = [out.to(x.dtype)]
     if emit_stats:
         results.append(torch.stack([out.sum(2), (out * out).sum(2)], 2))
     if res_kernel is not None:
-        raw = _bf16(x) if x2 is None else torch.cat([_bf16(x), _bf16(x2)], -1)
+        raw = x.float() if x2 is None else torch.cat([x.float(), x2.float()], -1)
         res = raw @ _bf16(res_kernel).reshape(raw.shape[-1], -1)
         if res_bias is not None:
             res = res + res_bias.float()

@@ -76,6 +76,27 @@ class GroupNorm(nn.GroupNorm):
         return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask is drawn from ``self.generator`` (set by the
+    trainer for each step, so a step is a function of its seed), as
+    flax's: keep with probability 1 - p and scale the kept by 1/(1 - p).
+    The identity in eval mode."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep_prob = 1.0 - self.p
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob,
+                                                                generator=self.generator)
+        return torch.where(keep.bool(), x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device))
+
+
 class Block(nn.Module):
     """norm -> swish -> dropout -> 3x3 conv (sr3_modules/unet.py:80-91).
 
@@ -87,7 +108,7 @@ class Block(nn.Module):
         super().__init__()
         self.block = nn.Sequential(
             GroupNorm(groups, dim, eps=1e-5), Swish(),
-            nn.Dropout(dropout) if dropout else nn.Identity(),
+            Dropout(dropout) if dropout else nn.Identity(),
             Conv2d(dim, dim_out, 3))
         self._packed = None
         self._packed_key = None
@@ -305,6 +326,12 @@ class UNet(nn.Module):
                 now_res *= 2
         self.ups = nn.ModuleList(ups)
         self.final_conv = Block(pre, out_channel, groups=norm_groups)
+
+    def set_dropout_generator(self, generator):
+        """The generator every Dropout draws its masks from."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
 
     def forward(self, x, time):
         """x: (B, H, W, in_channel) NHWC; time: (B, 1) noise level."""

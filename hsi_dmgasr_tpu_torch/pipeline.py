@@ -1,11 +1,20 @@
-"""DMGASR inference pipeline: GAE latent space + SR3 conditional diffusion.
+"""DMGASR pipeline: GAE latent space + SR3 conditional diffusion.
 
-Port of the inference half of ``hsi_dmgasr_tpu/pipeline.py`` (reference
-sr_gae.py:436-496): encode the bicubic-upsampled LR cube into G band-group
-latents, apply the latent affine, fold the groups into the batch, run
-the reverse chain once for all of them, unfold, GAE-decode, clip to
-[0, 1]; and the HSI metric suite. Tiled and spatially sharded inference
-are not ported yet.
+Port of ``hsi_dmgasr_tpu/pipeline.py`` (reference sr_gae.py:221-250 and
+436-496):
+
+  * ``train_step`` / ``train_step_from_hr``: GAE-encode the HR and SR
+    cubes with the frozen GAE and train the diffusion on the latent
+    pairs, all G band groups folded into one (B*G)-batch step
+    (``per_group=True``: the reference's G sequential steps). From HR
+    crops alone the SR cube is made on the device: MATLAB-bicubic down,
+    clip, up, clip (``data/imresize.py:make_imresize_torch``).
+  * ``super_resolve``: encode the bicubic-upsampled LR cube into G latents,
+    apply the latent affine, fold the groups into the batch, run the
+    reverse chain once for all of them, unfold, GAE-decode, clip to [0, 1];
+    and the HSI metric suite.
+
+Tiled and spatially sharded inference are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from .data.imresize import make_imresize_torch
 from .device import resolve_device
 from .evalhsi.metrics import color_correction as _color_correction
 from .evalhsi.metrics import quality_assessment
@@ -47,14 +57,18 @@ class DMGASRPipeline:
         self.latent_shift = float(gae_opt.get("latent_shift") or 0.0)
         self.latent_scale = float(gae_opt.get("latent_scale") or 1.0)
         self.ddpm = ddpm if ddpm is not None else DDPMModel(opt, seed=seed, device=self.device)
+        self._degrade_cache = {}
 
     # ------------------------------------------------------------ stages
+
+    def _encode(self, cube):
+        x = torch.as_tensor(cube, dtype=torch.float32, device=self.device)
+        return (self.gae.encode(x) - self.latent_shift) * self.latent_scale
 
     @torch.inference_mode()
     def encode(self, cube):
         """(B, H, W, C) cube -> (B, G, h, w, 3) latents."""
-        x = torch.as_tensor(cube, dtype=torch.float32, device=self.device)
-        return (self.gae.encode(x) - self.latent_shift) * self.latent_scale
+        return self._encode(cube)
 
     @torch.inference_mode()
     def decode(self, z):
@@ -70,6 +84,46 @@ class DMGASRPipeline:
     def _unfold(z, b):
         bg, h, w, c = z.shape
         return z.reshape(b, bg // b, h, w, c)
+
+    # ------------------------------------------------------------- train
+
+    def _degrade_fn(self, hw, scale):
+        """HR -> bicubic-up(LR) on the device: MATLAB-bicubic down, clip to
+        [0, 1], up, clip (the host dataset's HStrain.py:61-63 pair)."""
+        ck = (tuple(hw), scale)
+        if ck not in self._degrade_cache:
+            lr_hw = (hw[0] // scale, hw[1] // scale)
+            down = make_imresize_torch(hw, output_shape=lr_hw, device=self.device)
+            up = make_imresize_torch(lr_hw, output_shape=hw, device=self.device)
+            self._degrade_cache[ck] = lambda hr: up(down(hr).clamp(0.0, 1.0)).clamp(0.0, 1.0)
+        return self._degrade_cache[ck]
+
+    def _to_f32(self, x):
+        """A batch (numpy or tensor, f16/bf16 transfers included) as an f32
+        tensor on the device."""
+        return torch.as_tensor(x, device=self.device).float()
+
+    def train_step_from_hr(self, hr, scale=4, generator=None, per_group=False):
+        """Training step from HR crops only; SR derived on the device."""
+        hr = self._to_f32(hr)
+        with torch.no_grad():
+            sr = self._degrade_fn((hr.shape[1], hr.shape[2]), scale)(hr)
+        return self.train_step({"HR": hr, "SR": sr}, generator=generator, per_group=per_group)
+
+    def train_step(self, batch, generator=None, per_group=False):
+        """One diffusion update from a cube batch {'HR','SR'} (NHWC). The
+        GAE stays frozen; its latents are made under no_grad (not in
+        inference mode, whose tensors autograd cannot save)."""
+        with torch.no_grad():
+            z_hr = self._encode(self._to_f32(batch["HR"]))
+            z_sr = self._encode(self._to_f32(batch["SR"]))
+        if per_group:
+            # reference dynamics: one optimizer step per band group
+            # (sr_gae.py:245-250), each with fresh draws
+            losses = [self.ddpm.train_step({"HR": z_hr[:, g], "SR": z_sr[:, g]}, generator)
+                      for g in range(self.G)]
+            return torch.stack(losses).mean()
+        return self.ddpm.train_step({"HR": self._fold(z_hr), "SR": self._fold(z_sr)}, generator)
 
     # --------------------------------------------------------- inference
 

@@ -33,7 +33,8 @@ ROOT = Path(__file__).resolve().parents[2]
 _LOADS = ("    if (st + STAGES - 1 < TT) load_stage(st + STAGES - 1);\n", "")
 _BARRIER = ("    cp_async_wait<STAGES - 2>();\n    __syncthreads();", "")
 _ACTIVATION = ("    if (c1 < J) transform(st);\n", "")
-_MMA = ("      warp_step<MT, NT>(acc, act_s", "      if (TT < 0) warp_step<MT, NT>(acc, act_s")
+_MMA = ("      warp_step<MT, NT, SPLIT>(acc, act_s",
+        "      if (TT < 0) warp_step<MT, NT, SPLIT>(acc, act_s")
 
 # name -> edits of the source; each part of a K step taken out in turn
 ABLATIONS = {

@@ -27,6 +27,24 @@ DEVICE_PEAKS = {
 }
 
 
+# dense f32 TFLOP/s outside the tensor cores (what an f32 run with TF32
+# off gets from cuDNN and cuBLAS), by device-name prefix. H100 SXM: 67
+# TFLOP/s (NVIDIA data sheet), at a 700 W limit.
+DEVICE_F32_PEAKS = {
+    "NVIDIA H100 80GB HBM3": 67.0,
+}
+
+
+def device_f32_peak(device_kind: str):
+    """f32 TFLOP/s (no tensor cores) of the named device; raises for an
+    unknown one."""
+    for k, v in DEVICE_F32_PEAKS.items():
+        if device_kind.lower().startswith(k.lower()):
+            return v
+    raise ValueError(f"no f32 peak for device {device_kind!r}; known: "
+                     f"{sorted(DEVICE_F32_PEAKS)}")
+
+
 def device_peaks(device_kind: str):
     """(bf16 TFLOP/s, GB/s) of the named device; raises for an unknown one."""
     for k, v in DEVICE_PEAKS.items():

@@ -92,6 +92,10 @@ def test_port_imports_no_jax():
     for kernel in ("fused_conv", "flash_attention", "blocked_dot"):
         assert ROOT / "hsi_dmgasr_tpu_torch" / "kernels" / f"{kernel}.py" in files
     assert ROOT / "hsi_dmgasr_tpu_torch" / "tools" / "microbench_int8.py" in files
+    for module in ("train/state.py", "train/stage2_driver.py", "data/imresize.py",
+                   "data/hs_datasets.py", "data/loader.py", "data/device_cache.py",
+                   "utils/augment.py", "cli/sr_gae.py"):
+        assert ROOT / "hsi_dmgasr_tpu_torch" / module in files, module
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
@@ -115,3 +119,20 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DMGASRPipeline(opt, None, cfg)
     assert DDPMModel(opt, device="cpu").device.type == "cpu"
+
+    from hsi_dmgasr_tpu_torch.cli import sr_gae
+    from hsi_dmgasr_tpu_torch.data.device_cache import DeviceSceneCache
+    from hsi_dmgasr_tpu_torch.data.imresize import make_imresize_torch
+    from hsi_dmgasr_tpu_torch.train import stage2_driver
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceSceneCache([np.zeros((8, 8, 3), np.float32)], gt_size=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_imresize_torch((16, 16), output_shape=(4, 4))
+    train_opt = {"path": {"log": "unused"}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stage2_driver.train(train_opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stage2_driver.run_val_phase(train_opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sr_gae.main(["-c", "unused.json", "-p", "train"])

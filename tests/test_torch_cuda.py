@@ -5,9 +5,11 @@ Marked ``cuda``: skipped where there is no GPU. Run on a GPU machine with
 repository's conftest configures JAX, which the GPU machine need not
 have; these tests import only torch and the port).
 
-Tolerance: the kernel and the plain version see the same bf16 operands,
-so they differ only by f32 summation order and by a rare one-ulp flip
-of a bf16-rounded activation (|w| * 2^-8 * |a| on one tap):
+Tolerance: the kernel and the plain version see the same bf16 weights
+and, for bf16 input, bf16 activations (for f32 input, the kernel's hi +
+lo pair against the plain version's f32, 2^-17 apart), so they differ
+only by f32 summation order and by a rare one-ulp flip of a bf16-rounded
+activation (|w| * 2^-8 * |a| on one tap):
 atol = rtol = 1e-2 on outputs, 1e-3 relative to the largest moment on
 the per-row stats. The flash kernel and its plain version also share bf16
 operands (q * scale, k, v, p); they differ by f32 summation order, the
@@ -93,6 +95,8 @@ CASES = [
     ((1, 4, 16, 1024, 0, 128), "tb+proj+stats"),  # a 32-chunk K loop
     ((1, 3, 136, 128, 64, 64), "tb+stats+proj"),  # the 512^2 up-block source split
     ((1, 4, 24, 256, 128, 128), "tb+stats+proj"),  # x2 at Cout >= 128 (fuse_skip=True)
+    ((9, 8, 8, 512, 0, 512), "res+stats_in+stats"),  # W = 8: a 128^2 cube's deepest level
+    ((9, 8, 8, 1024, 0, 512), "tb+stats+proj"),      # its up-path block1, skip concatenated
 ]
 
 

@@ -7,9 +7,10 @@ the wrapper runs its plain PyTorch version.
 
 Tolerance: the JAX package's own for the fused block, atol = rtol = 0.05
 on outputs and rtol 2e-2 on the per-row stats
-(tests/test_fused_conv.py:66-67, 105-108): both sides round x, the
-activation and the weights to bf16 and accumulate in f32, in different
-orders.
+(tests/test_fused_conv.py:66-67, 105-108): both sides round the weights
+to bf16 and accumulate in f32, in different orders; the JAX kernel also
+rounds x, the activation and the residual to bf16, which the port's f32
+path keeps in f32.
 """
 
 import jax.numpy as jnp
