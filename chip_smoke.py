@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives five main paths. Three are x4 DMGASR on a
+checkout. It drives six main paths. Three are x4 DMGASR on a
 512x512x102 Pavia-geometry cube at full width (UNet inner 64, mults
 1,2,4,8,8, res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16,
 n_ovls 4, n_feats 64, G=9; seeded random weights):
@@ -25,20 +25,30 @@ n_ovls 4, n_feats 64, G=9; seeded random weights):
     1100 fused Blocks and no flash; it prints the bench's JSON line (both
     cube times, the UNet step's roofline share).
 
-The fourth is stage-2 training at the same full width:
+The fourth and fifth are the two training stages at the same full
+width, chained as a user chains them:
 
+  * train_gae: stage-1 GAE training through the port's CLI (cli.ae, at
+    its defaults: n_subs 16, n_ovls 4, n_colors 102, n_feats 64, scale 4,
+    batch 8), HLoss, Adam 1e-4, device-resident scenes: 8 HR crops of
+    128^2 x 102 a step, 72 group images through the shared encoder and
+    decoder (cuDNN, TF32 off). Cut: 12 steps over 2 epochs, ending on the
+    CLI's save; then cli.gae_test on the saved directory over the 3 val
+    scenes at 128^2. No kernel of the port runs.
   * train_r3: configs/pavia_x4_r3.json through the port's driver
     (stage2_driver.train, as the CLI runs it): dropout 0.2, Adam with the
     cosine lr, EMA 0.999 sampled at eval, device-resident scenes with the
     degradation on the card; 4 HR crops of 128^2 x 102 a step, so 36
     latents through the unfused autograd UNet (TF32 off). Cut: 12 steps,
     then one periodic save, one validation (3 val scenes of 128^2 x 3
-    chains at t_start=4, fused Blocks) and one best save; 8 training
-    scenes of 256^2 and the val scenes written from a seed; a seeded GAE
-    saved as a state_dict. The steps launch no kernel; the validation
+    chains at t_start=4, fused Blocks) and one best save; its GAE is the
+    directory train_gae saved. The steps launch no kernel; the validation
     launches 55 x 4 fused Blocks per (scene, chain), 1980.
 
-The fifth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
+Both train on the same 8 training scenes of 256^2 and validate on the
+same 3 val scenes of 128^2, written from a seed under build/scenes.
+
+The sixth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
 
   * int8_probe: chains of 4000 dependent dots x @ w with a requantize
     step, at M = 4096 and (K, N) = (512, 512), (576, 256), (192, 256),
@@ -58,7 +68,16 @@ In order:
     launch counts, times it (median of 3) and reads the peak memory; holds
     one full-width UNet forward with the kernels against the same forward
     with their plain versions (in bf16 for the bench; the f32 paths also
-    report both against the unfused f32 forward). Then train_r3:
+    report both against the unfused f32 forward). Then train_gae: counts
+    to 0, cli.ae's steps, no launch counted; every step's loss finite, the
+    saved directory loaded back into a fresh GAE bit for bit, one batch-1
+    step on the card against the same step on the CPU (HLoss in f32, and
+    HLoss plus the perceptual term on a seeded VGG19 with given bands in
+    f64), every
+    gae_test cube's metrics finite; ms per step (median after 2 warm-up
+    steps), crops per second, peak memory, the step's share of its f32
+    roofline, the perceptual step's ms, seconds per gae_test cube. Then
+    train_r3 on that checkpoint:
     counts to 0, stage2_driver's steps and validation, with the counts read at
     both ends of the validation; every step's loss finite, the EMA after
     every step against 0.999 EMA_prev + 0.001 params on a few leaves, the
@@ -91,11 +110,13 @@ In order:
 
 Details go to chiprun_out/chip_smoke.json. ``--profile`` adds one traced
 cube per path (the bench's t_start=4 row for bench_x4_bf16, one train
-step for train_r3): device time by kernel name (torch.profiler), the
-device's idle share and the seconds of each stage (GAE encode, reverse
-chain, GAE decode; for a train step: degradation, GAE encode, UNet
+step each for train_gae and train_r3): device time by kernel name
+(torch.profiler), the device's idle share and the seconds of each stage
+(GAE encode, reverse chain, GAE decode; for a stage-1 step: forward +
+loss, backward, Adam; for a stage-2 step: degradation, GAE encode, UNet
 forward + backward, Adam + EMA), into chip_smoke_profile.json beside it.
-train_r3 writes its data and experiment directory under build/train_r3.
+train_gae writes its checkpoint under build/train_gae, train_r3 its
+experiment directory under build/train_r3.
 """
 
 from __future__ import annotations
@@ -142,6 +163,15 @@ TRAIN, TRAIN_STEPS = "train_r3", 12
 TRAIN_VAL = {FUSED: 55 * 4 * 3 * 3, FLASH: 0}
 TRAIN_SCENES, TRAIN_SCENE_HW, VAL_HW = 8, 256, 128
 UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN)
+# stage-1 GAE training through the port's CLI (cli.ae) at the Pavia GAE's
+# width, device-resident scenes: 8 HR crops of 128^2 x 102 a step, so 72
+# group images through the shared encoder and decoder. 64 augmented items
+# / 8 = 8 steps an epoch: 2 epochs cut at TRAIN_GAE_STEPS end on the
+# second epoch's save. The GAE is cuDNN convolutions: no kernel of the port.
+TRAIN_GAE, TRAIN_GAE_STEPS, TRAIN_GAE_BATCH, TRAIN_GAE_EPOCHS = "train_gae", 12, 8, 2
+# the perceptual term's weight in the card-vs-CPU check (the shipped 1e-3
+# would hide the term under the loss's rtol), and the bands it replays
+TRAIN_GAE_P_WEIGHT, TRAIN_GAE_BANDS = 1.0, (5, 50, 97)
 # flash checks beside the path's own shape: D=128 (two heads) and D=512
 # with a ragged S, both past the 8192-token gate, and pavia_x4_r3's 64^2
 # attention (4096 tokens, D=512), which the gate keeps on the einsum path:
@@ -906,16 +936,12 @@ def run_bench(profile):
 
 
 def make_train_data(root):
-    """The train_r3 inputs, from a seed: TRAIN_SCENES .mat scenes (key
-    'block') of TRAIN_SCENE_HW^2 x 102, 3 .npy val scenes of VAL_HW^2 x
-    102 (blocky low-rank fields with smooth spectra, plus noise), and a
-    seeded port GAE at full width saved as a state_dict."""
+    """The training paths' scenes, from a seed: TRAIN_SCENES .mat scenes
+    (key 'block') of TRAIN_SCENE_HW^2 x 102 and 3 .npy val scenes of
+    VAL_HW^2 x 102 (blocky low-rank fields with smooth spectra, plus
+    noise). Returns their directories."""
     import numpy as np
     import scipy.io as sio
-    import torch
-
-    from hsi_dmgasr_tpu_torch.models.gae import GAE
-    from hsi_dmgasr_tpu_torch.models.networks import init_weights
 
     rng = np.random.RandomState(0)
     c = GAE_CFG["n_colors"]
@@ -934,26 +960,22 @@ def make_train_data(root):
         sio.savemat(os.path.join(dirs["mat"], f"scene_{i}.mat"), {"block": scene(TRAIN_SCENE_HW)})
     for i in range(3):
         np.save(os.path.join(dirs["npy"], f"scene_{i}.npy"), scene(VAL_HW))
-    gae_kw = {k: GAE_CFG[k] for k in ("n_subs", "n_ovls", "n_colors", "n_feats")}
-    gae = init_weights(GAE(**gae_kw), torch.Generator().manual_seed(0))
-    gae_path = os.path.join(root, "gae.pth")
-    torch.save(gae.state_dict(), gae_path)
-    return dirs, gae_path
+    return dirs
 
 
-def train_config(root):
+def train_config(root, dirs, gae_ckpt):
     """configs/pavia_x4_r3.json through the port's config.parse, with the
-    cuts of this path: fused Blocks at validation, the data roots and the
-    GAE of make_train_data, save and validation at the last step."""
+    cuts of this path: fused Blocks at validation, the scenes of
+    make_train_data, the GAE that train_gae trained and saved, save and
+    validation at the last step."""
     from hsi_dmgasr_tpu_torch import config
 
-    dirs, gae_path = make_train_data(root)
     opt = config.parse(os.path.join(ROOT, "configs", "pavia_x4_r3.json"), phase="train",
                        experiments_root=os.path.join(root, "exp"))
     opt["model"]["unet"]["fuse"] = True
     opt["datasets"]["train"]["dataroot"] = dirs["mat"]
     opt["datasets"]["val"]["dataroot"] = dirs["npy"]
-    opt["gae"]["checkpoint"] = gae_path
+    opt["gae"]["checkpoint"] = gae_ckpt
     for k in ("n_subs", "n_ovls", "n_colors", "n_feats"):
         opt["gae"][k] = GAE_CFG[k]
     for k in ("val_freq", "save_checkpoint_freq"):
@@ -1012,9 +1034,10 @@ def step_against_cpu(opt, state_dict):
     return res
 
 
-def run_train(profile):
+def run_train(profile, dirs, gae_ckpt):
     """The training path: configs/pavia_x4_r3.json through the port's
-    driver (``stage2_driver.train``), TRAIN_STEPS steps then one periodic
+    driver (``stage2_driver.train``) on the scenes ``dirs`` and the stage-1
+    checkpoint directory ``gae_ckpt``, TRAIN_STEPS steps then one periodic
     save, one validation and one best save. Counts: 0 before the first
     step, read when the validation starts (the steps launch no kernel) and
     when it ends (TRAIN_VAL). Checks every step's loss is finite, the EMA
@@ -1036,9 +1059,8 @@ def run_train(profile):
 
     root = os.path.join(ROOT, "build", TRAIN)
     shutil.rmtree(root, ignore_errors=True)
-    t0 = time.perf_counter()
-    opt = train_config(root)
-    log(f"[{TRAIN}] data and config: {time.perf_counter() - t0:.1f} s")
+    opt = train_config(root, dirs, gae_ckpt)
+    log(f"[{TRAIN}] the GAE: {gae_ckpt}, trained by {TRAIN_GAE}")
     steps, ema_errs, val, fused_calls, flash_calls = [], [], {}, {}, {}
     real_step, real_apply = DMGASRPipeline.train_step_from_hr, DDPMModel.apply_gradients
     real_validate = drv.validate
@@ -1199,6 +1221,237 @@ def run_train(profile):
     return report, fused_calls, flash_calls
 
 
+def gae_step_against_cpu(state_dict, crop, vgg=None, bands=None):
+    """One stage-1 step at batch 1 on the card and on the CPU from the same
+    weights and the same crop: the loss within TOL_STEP_LOSS and each
+    gradient leaf within TOL_STEP_GRAD of that leaf's largest |g|. HLoss
+    alone is held in f32, the trainer's dtype. With the perceptual term on
+    ``vgg`` (its ``bands`` given) the same check is made with the GAE, the
+    VGG19 and the crop widened to f64 on both sides: that gradient flows
+    back through 16 ReLU convs and 5 max-pools whose masks and choices f32
+    rounding flips, so the CPU's own f32 step already lies 1.1e-3 to
+    3.0e-3 of a leaf's largest |g| from itself in f64, past the bound. The
+    f32 steps are run too, and their distance from each other and from
+    the CPU's f64 step is reported beside the check."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.train.stage1_gae import GAETrainer, make_vgg_perceptual_fn
+
+    kw = {k: GAE_CFG[k] for k in ("n_subs", "n_ovls", "n_colors", "n_feats")}
+    dtypes = (torch.float32,) if vgg is None else (torch.float32, torch.float64)
+    out = {}
+    for dt in dtypes:
+        for dev in ("cpu", "cuda"):
+            pfn = None if vgg is None else make_vgg_perceptual_fn(copy.deepcopy(vgg).to(dev, dt))
+            tr = GAETrainer(**kw, state_dict=state_dict, perceptual_fn=pfn,
+                            perceptual_weight=TRAIN_GAE_P_WEIGHT, device=dev)
+            if dt == torch.float64:  # the trainer's cast to f32, widened to f64
+                tr.gae.double()
+                tr._to_f32 = lambda x, d=dev: torch.as_tensor(x, device=d).double()
+            t0 = time.perf_counter()
+            loss = tr.compute_grads(crop[None], bands=bands).item()
+            out[dev, dt] = (loss, {n: p.grad.detach().double().cpu()
+                                   for n, p in tr.gae.named_parameters()})
+            log(f"[{TRAIN_GAE}] one batch-1 {crop.shape[0]}^2 step on {dev} in {str(dt)[6:]}"
+                f"{'' if vgg is None else ' with the perceptual term'}: "
+                f"{time.perf_counter() - t0:.2f} s")
+            del tr, pfn
+
+    def worst_leaf(a, b):
+        return max(((a[n] - g).abs().max() / g.abs().max()).item() for n, g in b.items())
+
+    def compare(dt):
+        (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out["cpu", dt], out["cuda", dt]
+        return {"loss_cpu": loss_cpu, "loss_card": loss_gpu,
+                "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+                "grad_max_abs_err": max((g_gpu[n] - g).abs().max().item()
+                                        for n, g in g_cpu.items()),
+                "grad_max_abs": max(g.abs().max().item() for g in g_cpu.values()),
+                "grad_worst_leaf_rel_err": worst_leaf(g_gpu, g_cpu), "leaves": len(g_cpu)}
+
+    res = {"dtype": str(dtypes[-1])[6:], **compare(dtypes[-1])}
+    if vgg is not None:
+        g_ref = out["cpu", torch.float64][1]
+        res["f32"] = {**compare(torch.float32),
+                      "cpu_vs_cpu_f64_worst_leaf_rel_err": worst_leaf(
+                          out["cpu", torch.float32][1], g_ref),
+                      "card_vs_cpu_f64_worst_leaf_rel_err": worst_leaf(
+                          out["cuda", torch.float32][1], g_ref)}
+    if res["loss_rel_err"] > TOL_STEP_LOSS or res["grad_worst_leaf_rel_err"] > TOL_STEP_GRAD:
+        raise AssertionError(f"[{TRAIN_GAE}] card step vs CPU step: {res}")
+    return res
+
+
+def run_train_gae(profile, dirs):
+    """Stage-1 GAE training as a user runs it: ``cli.ae.main`` on the scenes
+    ``dirs`` at the Pavia GAE's width (the CLI's defaults: n_subs 16,
+    n_ovls 4, n_colors 102, n_feats 64, scale 4, batch 8), device-resident,
+    TRAIN_GAE_STEPS steps ending on a save; then ``cli.gae_test.main`` on
+    the saved directory over the 3 val scenes at 128^2. Counts: 0 before
+    the CLI, none after (the path runs no kernel of the port). Checks every
+    step's loss is finite, the checkpoint back into a fresh GAE bit for
+    bit, one batch-1 step on the card against the CPU's with HLoss (f32)
+    and with the perceptual term (f64; a seeded torchvision-layout VGG19),
+    and every
+    cube's gae_test metrics finite. Times every step (median after 2
+    warm-up steps), a perceptual step, and gae_test per cube. Returns the
+    report and the checkpoint directory."""
+    import numpy as np
+    import torch
+
+    from hsi_dmgasr_tpu_torch.cli import ae, gae_test
+    from hsi_dmgasr_tpu_torch.data.device_cache import DeviceSceneCache
+    from hsi_dmgasr_tpu_torch.data.hs_datasets import HSTrainingData
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.models.gae import GAE
+    from hsi_dmgasr_tpu_torch.models.networks import init_weights
+    from hsi_dmgasr_tpu_torch.models.vgg import VGG19
+    from hsi_dmgasr_tpu_torch.train.stage1_gae import GAETrainer, make_vgg_perceptual_fn
+    from hsi_dmgasr_tpu_torch.utils.roofline import device_f32_peak, gae_forward_ops
+
+    root = os.path.join(ROOT, "build", TRAIN_GAE)
+    shutil.rmtree(root, ignore_errors=True)
+    out = os.path.join(root, "gae")
+    kw = {k: GAE_CFG[k] for k in ("n_subs", "n_ovls", "n_colors", "n_feats")}
+    size = 32 * 4  # the CLI's crop: 32 * scale
+    steps = []
+    real_step = GAETrainer.train_step
+
+    def timed_step(self, hr, **step_kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = real_step(self, hr, **step_kw)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t, "loss": float(loss),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        return loss
+
+    argv = ["--data", dirs["mat"], "--datatype", "hsi_mat", "--device_resident",
+            "--n_subs", str(kw["n_subs"]), "--n_ovls", str(kw["n_ovls"]),
+            "--n_colors", str(kw["n_colors"]), "--n_feats", str(kw["n_feats"]), "--scale", "4",
+            "--batch_size", str(TRAIN_GAE_BATCH), "--epochs", str(TRAIN_GAE_EPOCHS),
+            "--max_steps", str(TRAIN_GAE_STEPS), "--out", out]
+    log(f"[{TRAIN_GAE}] python -m hsi_dmgasr_tpu_torch.cli.ae {' '.join(argv)}")
+    fc.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    bd.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(GAETrainer, "train_step", timed_step):
+        trainer = ae.main(argv)
+    torch.cuda.synchronize()
+    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
+    losses = [st["loss"] for st in steps]
+    log(f"[{TRAIN_GAE}] {len(steps)} steps, losses {losses}, kernel launches {launches}")
+    if len(steps) != TRAIN_GAE_STEPS or trainer.step != TRAIN_GAE_STEPS \
+            or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{TRAIN_GAE}] {len(steps)} steps ({trainer.step} updates), "
+                             f"losses {losses}")
+    if launches != {FUSED: 0, FLASH: 0, DOT: 0}:
+        raise AssertionError(f"[{TRAIN_GAE}] launched {launches}, expected no kernel")
+
+    step_s = statistics.median(st["s"] for st in steps[2:])
+    peak_gib = max(st["peak_gib"] for st in steps)
+    flops = 3 * sum(op.flops for op in gae_forward_ops(TRAIN_GAE_BATCH, size, **kw))
+    peak_tflops = device_f32_peak(torch.cuda.get_device_name(0))
+    report = {"cli": "cli.ae " + " ".join(argv[2:]), "steps": TRAIN_GAE_STEPS,
+              "step_seconds": step_s, "step_times": [st["s"] for st in steps],
+              "losses": losses, "crops_per_second": TRAIN_GAE_BATCH / step_s,
+              "peak_memory_gib": peak_gib, "step_tflop": flops / 1e12,
+              "f32_peak_tflops": peak_tflops,
+              "f32_bound_ms": flops / (peak_tflops * 1e12) * 1e3,
+              "roofline_share_f32": flops / step_s / (peak_tflops * 1e12), "launches": launches}
+    log(f"[{TRAIN_GAE}] ms per train step (median of {len(steps) - 2} after 2 warm-up): "
+        f"{step_s * 1e3:.2f} ({TRAIN_GAE_BATCH} HR crops of {size}^2 x {kw['n_colors']}, "
+        f"{TRAIN_GAE_BATCH * GAE_CFG['G']} group images)")
+    log(f"[{TRAIN_GAE}] crops per second {report['crops_per_second']:.2f}, peak memory "
+        f"{peak_gib:.2f} GiB")
+    log(f"[{TRAIN_GAE}] roofline share: 3 x {flops / 3e12:.3f} TFLOP forward over the step "
+        f"against the f32 peak {peak_tflops} TFLOP/s ({report['f32_bound_ms']:.1f} ms): "
+        f"{report['roofline_share_f32']:.4f}")
+
+    # the checkpoint the CLI saved -> a fresh GAE, bit for bit
+    sd, cfg = GAETrainer.load_gae_variables(out)
+    fresh = GAE(**{k: cfg[k] for k in kw})
+    fresh.load_state_dict(sd)
+    live = trainer.gae.state_dict()
+    if cfg != GAE_CFG or fresh.state_dict().keys() != live.keys() or not all(
+            torch.equal(fresh.state_dict()[k], v.cpu()) for k, v in live.items()):
+        raise AssertionError(f"[{TRAIN_GAE}] {out} did not load back bit for bit ({cfg})")
+    log(f"[{TRAIN_GAE}] save -> load_gae_variables -> a fresh GAE: {len(live)} tensors equal "
+        f"bit for bit, config {cfg}")
+    del fresh, live
+
+    # one batch-1 step on the card against the CPU's, on an f16-rounded crop
+    ds = HSTrainingData(dirs["mat"], n_scale=4, augment=True, hr_only=True,
+                        rng=np.random.RandomState(0))
+    crop = torch.from_numpy(ds[3]["HR"].astype(np.float16))
+    report["card_vs_cpu_step"] = gae_step_against_cpu(sd, crop)
+    log(f"[{TRAIN_GAE}] card vs CPU step, HLoss: {report['card_vs_cpu_step']}")
+    vgg = init_weights(VGG19(), torch.Generator().manual_seed(0), init_type="kaiming")
+    report["card_vs_cpu_perceptual_step"] = gae_step_against_cpu(sd, crop, vgg,
+                                                                 TRAIN_GAE_BANDS)
+    log(f"[{TRAIN_GAE}] card vs CPU step, HLoss + {TRAIN_GAE_P_WEIGHT} x the perceptual term "
+        f"(VGG19 with seeded He-normal weights, not pretrained; bands {TRAIN_GAE_BANDS}): "
+        f"{report['card_vs_cpu_perceptual_step']}")
+
+    # a perceptual step at the path's batch: HLoss + 1e-3 x the VGG19 term
+    cache = DeviceSceneCache.from_dataset(ds, gt_size=size, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    hr = cache.sample(gen, TRAIN_GAE_BATCH)
+    ptr = GAETrainer(**kw, state_dict=sd, device="cuda",
+                     perceptual_fn=make_vgg_perceptual_fn(vgg.cuda()))
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ptr.train_step(hr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    report["perceptual_step_seconds"] = statistics.median(times[2:])
+    log(f"[{TRAIN_GAE}] ms per step with the perceptual term (median of 3 after 2 warm-up, "
+        f"seeded VGG19): {report['perceptual_step_seconds'] * 1e3:.2f}")
+    del ptr, vgg, cache
+
+    # gae_test on the saved directory: every cube's metrics finite
+    cubes = []
+    real_qa = gae_test.quality_assessment
+
+    def recorded_qa(*a, **k):
+        cubes.append(real_qa(*a, **k))
+        return cubes[-1]
+
+    t0 = time.perf_counter()
+    with mock.patch.object(gae_test, "quality_assessment", recorded_qa):
+        avg = gae_test.main(["--ckpt", out, "--data", dirs["npy"], "--gt_size", str(VAL_HW),
+                             "--scale", "4"])
+    secs = (time.perf_counter() - t0) / max(len(cubes), 1)
+    if len(cubes) != 3 or not all(math.isfinite(v) for qa in cubes for v in qa.values()):
+        raise AssertionError(f"[{TRAIN_GAE}] gae_test metrics {cubes}")
+    report["gae_test"] = json.loads(json.dumps(
+        {"cube_seconds": secs, "averaged": avg, "cubes": cubes}, default=float))
+    log(f"[{TRAIN_GAE}] gae_test: {len(cubes)} cubes of {VAL_HW}^2 x {kw['n_colors']}, "
+        f"{secs:.3f} s a cube, averaged {avg}")
+
+    if profile:
+        hr = torch.rand((TRAIN_GAE_BATCH, size, size, kw["n_colors"]),
+                        generator=torch.Generator(device="cuda").manual_seed(12), device="cuda")
+
+        def forward_loss(_):
+            trainer.optimizer.zero_grad(set_to_none=True)
+            return trainer.loss(hr)
+
+        report["profile"] = profile_cube(
+            lambda: trainer.train_step(hr),
+            (("forward_loss", forward_loss), ("backward", lambda loss: loss.backward()),
+             ("adam", lambda _: trainer.apply_gradients())))
+        log_profile(TRAIN_GAE, report["profile"])
+    del trainer
+    torch.cuda.empty_cache()
+    return report, out
+
+
 def run_probe():
     """The int8 probe's main path: the launch counts set to 0, the probe
     run once, the exact counts read. Each case and dtype makes one eager
@@ -1308,7 +1561,9 @@ def main():
     del cube
     torch.cuda.empty_cache()
     runs.update(run_bench(args.profile))
-    runs[TRAIN] = run_train(args.profile)
+    dirs = make_train_data(os.path.join(ROOT, "build", "scenes"))
+    report["paths"][TRAIN_GAE], gae_ckpt = run_train_gae(args.profile, dirs)
+    runs[TRAIN] = run_train(args.profile, dirs, gae_ckpt)
     fused_sigs, flash_sigs = {}, {}
     for path, (path_report, fused_calls, flash_calls) in runs.items():
         report["paths"][path] = path_report
@@ -1408,7 +1663,8 @@ def main():
     report["kernels"] = entries
     if args.profile:
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:
-            json.dump({p: report["paths"][p].pop("profile") for p in (*PATHS, BENCH, TRAIN)}, f,
+            json.dump({p: report["paths"][p].pop("profile")
+                       for p in (*PATHS, BENCH, TRAIN_GAE, TRAIN)}, f,
                       indent=1)
     report["script_s"] = time.perf_counter() - t_script
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -26,11 +26,12 @@ Left out of the root bench, on purpose:
   * ``vs_baseline`` and ``BASELINE_SECONDS``: a 30 s budget set for a TPU
     v5e-8, which says nothing of this card;
   * ``--yield_tpu`` and the training-contention guard: they stop the JAX
-    trainer's supervised child, and the trainer is not ported;
-  * ``GAE_PRETRAINED``: the whole-module pickle loader of the JAX package
-    (``io/convert_torch.py:load_torch_gae``) is not ported, so a
-    ``GAE_PRETRAINED`` that names a file raises instead of the run
-    quietly using seeded weights.
+    trainer's supervised child, which the port does not have.
+
+``GAE_PRETRAINED`` naming a whole-module GAE ``.pth`` (the shipped
+``GAE_4_Pav.pth``) loads it through ``io.convert_torch.load_torch_gae``
+outside ``--small``, as the root bench does; the cube then has the
+checkpoint's band count.
 
 Without ``--cpu`` the run is on CUDA and raises if there is none.
 """
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device, use_f32_policy
+from .io.convert_torch import load_state_dict, load_torch_gae
 from .models.gae import GAE, group_indices
 from .models.networks import diffusion_for_phase, init_weights
 from .models.unet import UNet
@@ -68,10 +70,12 @@ class Bench:
     def __init__(self, args, device):
         size, channels, inner, mults, attn, n_sub, n_ovl, feats = geometry(args.small)
         ckpt = os.environ.get("GAE_PRETRAINED")
+        gae_state = None
         if not args.small and ckpt and os.path.exists(ckpt):
-            raise NotImplementedError(
-                f"GAE_PRETRAINED={ckpt}: the whole-module GAE loader (the JAX package's "
-                "load_torch_gae) is not ported; unset it to bench on seeded weights")
+            gae_state, cfg = load_torch_gae(ckpt)
+            channels, n_sub, n_ovl, feats = (cfg[k] for k in ("n_colors", "n_subs", "n_ovls",
+                                                                "n_feats"))
+        self.gae_loaded = gae_state is not None
         opt = {"model": {
             "beta_schedule": {"val": {"schedule": "cosine", "n_timestep": args.timesteps,
                                       "linear_start": 1e-6, "linear_end": 1e-2}},
@@ -90,7 +94,10 @@ class Bench:
             fuse_blocks=not args.no_fuse and args.dtype == "bf16",
             fuse_skip=False if args.no_fuse_skip else "auto",
             fuse_stats=not args.no_fuse_stats)
-        init_weights(self.gae, torch.Generator().manual_seed(0))
+        if gae_state is None:
+            init_weights(self.gae, torch.Generator().manual_seed(0))
+        else:
+            load_state_dict(self.gae, gae_state)
         init_weights(self.unet, torch.Generator().manual_seed(0))
         self.gae.to(device=device, dtype=self.dtype).eval()
         self.unet.to(device=device, dtype=self.dtype).eval()
@@ -178,7 +185,7 @@ def measure(args, model):
         "times": [round(t, 3) for t in times],
         "dtype": args.dtype,
         "timesteps": args.timesteps,
-        "gae_ckpt": False,
+        "gae_ckpt": model.gae_loaded,
         "size": model.size,
         "channels": model.channels,
         "batch": args.batch,

@@ -10,11 +10,16 @@ and the array is brought back to torch layout (HWIO -> OIHW conv
 kernels, (in, out) -> (out, in) linear kernels, GroupNorm ``scale`` ->
 ``weight``). ``export_jax_params`` is its inverse: a module's weights as
 the flat flax-path dict of numpy arrays, in the JAX layouts.
+
+The shipped GAE checkpoints are whole-module pickles: ``load_torch_gae``
+reads them through stub classes (a copy of the JAX module's unpickler),
+and ``read_state_dict`` reads either kind of ``.pth``.
 """
 
 from __future__ import annotations
 
 import re
+import types
 
 import numpy as np
 import torch
@@ -166,3 +171,104 @@ def unflatten_npz(path):
                 arr = arr.astype(np.float32)
             flat[tuple(key.split("/"))] = arr
     return unflatten(flat)
+
+
+# ---------------------------------------------------------------------------
+# whole-module pickles: the shipped GAE checkpoints (``torch.save(AE_model)``,
+# reference AE.py:637) name their classes ``__main__.{GAE, Encoder, ...}`` and
+# ``common.{ResBlock, ...}``. Unpickling an nn.Module restores only instance
+# ``__dict__``s, so empty stand-in classes under those names read them without
+# running any reference code; torch's own layers inside resolve to torch.
+
+_MAIN_CLASSES = ("GAE", "Encoder", "Decoder", "BranchUnit", "SSB", "SSPN",
+                 "AE", "AE_duichen", "SR_encoder", "post_GAE", "Autoencoder",
+                 "Swish", "Codebook")
+_COMMON_CLASSES = ("ResBlock", "ResAttentionBlock", "CALayer", "Upsampler",
+                   "BasicBlock", "MeanShift", "GroupNorm", "Swish")
+
+_STUB_MODULES = {
+    "__main__": _MAIN_CLASSES,
+    "common": _COMMON_CLASSES,
+    "quantize": ("Quantization", "Conv2d_Q"),
+    "GELIN": ("GELIN", "SSELM", "NGIM", "HLoss"),
+}
+
+_stub_cache = {}
+
+
+def stub_class(module, name):
+    """The empty ``nn.Module`` subclass standing in for reference class
+    ``module.name`` (one class per name, made at first use)."""
+    key = (module, name)
+    if key not in _stub_cache:
+        _stub_cache[key] = type(name, (torch.nn.Module,), {"__module__": module})
+    return _stub_cache[key]
+
+
+def _stub_pickle_module():
+    """A pickle module whose Unpickler resolves the reference's class paths
+    to stubs, without touching ``sys.modules`` or ``__main__`` (a caller's
+    own ``GAE`` or ``Encoder`` is never shadowed or used)."""
+    import pickle
+
+    class StubUnpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if name in _STUB_MODULES.get(module, ()):
+                return stub_class(module, name)
+            return super().find_class(module, name)
+
+    shim = types.ModuleType("hsi_dmgasr_tpu_torch_stub_pickle")
+    shim.Unpickler = StubUnpickler
+    shim.load = pickle.load
+    shim.loads = pickle.loads
+    shim.dumps = pickle.dumps
+    shim.HIGHEST_PROTOCOL = pickle.HIGHEST_PROTOCOL
+    return shim
+
+
+def load_torch_module(path):
+    """Unpickle a whole-module (or state_dict) ``.pth`` on the CPU through
+    the stub classes. This runs the pickle: read only files you trust."""
+    return torch.load(path, map_location="cpu", weights_only=False,
+                      pickle_module=_stub_pickle_module())
+
+
+def read_state_dict(path):
+    """A ``.pth`` holding a state_dict or a whole module -> its state_dict
+    (CPU tensors)."""
+    obj = load_torch_module(path)
+    if isinstance(obj, torch.nn.Module):
+        obj = obj.state_dict()
+    return {k: torch.as_tensor(v).detach() for k, v in obj.items()}
+
+
+def gae_config_from_module(mod):
+    """(n_subs, n_ovls, n_colors, n_feats, G, start_idx, end_idx) of an
+    unpickled reference GAE: ``start_idx``/``end_idx`` are plain attributes
+    restored by pickle (AE.py:266-280), n_feats is the encoder head's
+    output width."""
+    start = list(mod.start_idx)
+    end = list(mod.end_idx)
+    n_subs = end[0] - start[0]
+    n_ovls = n_subs - (start[1] - start[0]) if len(start) > 1 else 0
+    return dict(n_subs=n_subs, n_ovls=n_ovls, n_colors=end[-1],
+                n_feats=mod.Encoder.branch.head.weight.shape[0], G=len(start),
+                start_idx=start, end_idx=end)
+
+
+def load_torch_gae(path):
+    """A shipped whole-module GAE ``.pth`` -> (state_dict, config). The port's
+    GAE keeps the reference's keys, so the state_dict loads into
+    ``models.gae.GAE`` built with the config's n_subs, n_ovls, n_colors and
+    n_feats."""
+    mod = load_torch_module(path)
+    if not hasattr(mod, "start_idx"):
+        raise ValueError(f"{path}: not a reference GAE module (it has no start_idx)")
+    cfg = gae_config_from_module(mod)
+    return {k: v.detach() for k, v in mod.state_dict().items()}, cfg
+
+
+def load_torch_vgg19(path):
+    """A user-supplied torchvision ``vgg19*.pth`` (state_dict or whole
+    module) -> a state_dict for ``models.vgg.VGG19``."""
+    return read_state_dict(path)

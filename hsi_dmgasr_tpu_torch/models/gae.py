@@ -117,3 +117,13 @@ class GAE(nn.Module):
         """Full round trip; returns (recon, latents) (AE.py:326-361)."""
         z = self.encode(x)
         return self.decode(z), z
+
+
+def random_mask(data, p=0.2, generator=None, mask=None):
+    """Zero a random fraction p of entries (AE.py:95-99), the masking of
+    the DDP stage-1 trainer (GAE/AEddp.py:196-247): an element is kept
+    where a uniform draw from ``generator`` is > p. A given boolean
+    ``mask`` (True = keep) replaces the draw."""
+    if mask is None:
+        mask = torch.rand(data.shape, generator=generator, device=data.device) > p
+    return data * torch.as_tensor(mask, device=data.device).to(data.dtype)

@@ -19,8 +19,8 @@ Port of ``hsi_dmgasr_tpu/train/stage2_driver.py``:
 Scalars are logged through ``logging`` (the JAX package's TensorBoard and
 W&B loggers are not ported), and validation writes the ``.npy`` dumps
 only: the PNG dumps wait for a port of ``evalhsi/image_io.py``.
-Datatypes: ``hsi_mat`` and ``hsi_npy``; the ``mat_pairs_*`` folders are
-not ported yet.
+Datatypes: ``hsi_mat``, ``hsi_npy``, and the ``.mat`` pair folders
+``mat_pairs_train`` and ``mat_pairs_test`` (``data/mat_folder.py``).
 """
 
 from __future__ import annotations
@@ -40,46 +40,64 @@ from ..config import setup_logger
 from ..data.device_cache import DeviceSceneCache
 from ..data.hs_datasets import HSTestData, HSTrainingData
 from ..data.loader import DataLoader
+from ..data.mat_folder import TestsetFromFolder, TrainsetFromFolder
 from ..device import resolve_device, use_f32_policy
 from ..evalhsi.metrics import color_correction, quality_assessment, sum_dict
-from ..io.convert_torch import load_jax_params, load_state_dict, unflatten_npz
+from ..io.convert_torch import load_jax_params, load_state_dict, load_torch_gae, unflatten_npz
 from ..models.gae import GAE
 from ..pipeline import DMGASRPipeline
 from .ddpm_model import DDPMModel
+from .stage1_gae import GAETrainer
 
 logger = logging.getLogger("base")
 _GAE_KEYS = ("n_subs", "n_ovls", "n_colors", "n_feats")
 
 
 def load_gae(opt):
-    """(GAE module, config) from the config's ``gae`` section: a
-    reference-layout GAE ``state_dict`` ``.pth`` or a JAX GAE param
-    ``.npz`` in ``gae.checkpoint``, with ``n_subs``, ``n_ovls``,
-    ``n_colors`` and ``n_feats`` beside it. A whole-module pickle (the
-    shipped ``GAE_*.pth``) is refused: its loader is not ported."""
+    """(GAE module, config) from the config's ``gae`` section.
+    ``gae.checkpoint`` is what stage 1 produces, or a JAX export:
+
+      * a directory written by ``GAETrainer.save`` (the port's stage 1);
+      * a whole-module ``.pth`` (the shipped ``GAE_*.pth``), through
+        ``load_torch_gae``;
+      * a reference-layout state_dict ``.pth``, or a JAX GAE param ``.npz``.
+
+    A checkpoint that carries its own widths takes them from there, and an
+    ``n_subs``, ``n_ovls``, ``n_colors`` or ``n_feats`` in the section that
+    differs is an error. The other two kinds need all four in the
+    section."""
     gae_opt = opt.get("gae") or {}
     ckpt = gae_opt.get("checkpoint")
     if not ckpt:
         raise ValueError("config['gae']['checkpoint'] is required")
-    missing = [k for k in _GAE_KEYS if gae_opt.get(k) is None]
-    if missing:
-        raise ValueError(f"config['gae'] needs {missing} beside the checkpoint")
-    cfg = {k: int(gae_opt[k]) for k in _GAE_KEYS}
-    cfg["G"] = -(-(cfg["n_colors"] - cfg["n_ovls"]) // (cfg["n_subs"] - cfg["n_ovls"]))
-    gae = GAE(**{k: cfg[k] for k in _GAE_KEYS})
-    if ckpt.endswith(".npz"):
-        load_jax_params(gae, unflatten_npz(ckpt))
+    sd = own = None
+    if os.path.isdir(ckpt):
+        sd, own = GAETrainer.load_gae_variables(ckpt)
     elif ckpt.endswith(".pth"):
         try:
             sd = torch.load(ckpt, map_location="cpu", weights_only=True)
-        except pickle.UnpicklingError as e:
-            raise ValueError(
-                f"{ckpt} is not a state_dict (a whole-module pickle?): the whole-module GAE "
-                "loader is not ported (ROADMAP.md queue 1 item 6); save the module's "
-                "state_dict() instead") from e
-        load_state_dict(gae, sd)
+        except pickle.UnpicklingError:  # not a state_dict: a whole-module pickle
+            sd, own = load_torch_gae(ckpt)
+    elif not ckpt.endswith(".npz"):
+        raise ValueError(f"gae.checkpoint {ckpt}: expected a stage-1 directory, a .pth or a "
+                         "JAX .npz")
+    if own is not None:
+        clash = {k: (gae_opt[k], own[k]) for k in _GAE_KEYS
+                 if gae_opt.get(k) is not None and int(gae_opt[k]) != own[k]}
+        if clash:
+            raise ValueError(f"config['gae'] disagrees with {ckpt} (config, checkpoint): {clash}")
+        cfg = {k: int(own[k]) for k in _GAE_KEYS}
     else:
-        raise ValueError(f"gae.checkpoint {ckpt}: expected a state_dict .pth or a JAX .npz")
+        missing = [k for k in _GAE_KEYS if gae_opt.get(k) is None]
+        if missing:
+            raise ValueError(f"config['gae'] needs {missing} beside the checkpoint")
+        cfg = {k: int(gae_opt[k]) for k in _GAE_KEYS}
+    cfg["G"] = -(-(cfg["n_colors"] - cfg["n_ovls"]) // (cfg["n_subs"] - cfg["n_ovls"]))
+    gae = GAE(**{k: cfg[k] for k in _GAE_KEYS})
+    if sd is None:
+        load_jax_params(gae, unflatten_npz(ckpt))
+    else:
+        load_state_dict(gae, sd)
     return gae, cfg
 
 
@@ -94,8 +112,11 @@ def build_dataset(ds_opt, phase, n_scale=4):
                               hr_only=bool(ds_opt.get("on_device_degradation")))
     if datatype in ("hsi_mat", "hsi_npy"):
         return HSTestData(root, n_scale=n_scale, gt_size=ds_opt.get("r_resolution") or 64)
-    if datatype in ("mat_pairs_train", "mat_pairs_test"):
-        raise NotImplementedError(f"datatype [{datatype}] (data/mat_folder.py) is not ported yet")
+    if datatype == "mat_pairs_train":
+        return TrainsetFromFolder(root, scale=n_scale)
+    if datatype == "mat_pairs_test":
+        return TestsetFromFolder(root, scale=n_scale, lr_size=ds_opt.get("l_resolution") or 32,
+                                 hr_size=ds_opt.get("r_resolution") or 128)
     raise NotImplementedError(f"datatype [{datatype}]")
 
 
@@ -122,7 +143,8 @@ def build_pipeline(opt, seed=0, device=None):
     return pipeline
 
 
-def _seed(*parts):
+def derive_seed(*parts):
+    """One 32-bit seed from integers (numpy's SeedSequence)."""
     return int(np.random.SeedSequence([int(p) & 0xFFFFFFFF for p in parts]).generate_state(1)[0])
 
 
@@ -152,7 +174,7 @@ def validate(pipeline, val_loader, opt, result_path=None, step=0, save_outputs=T
         gt = np.asarray(val_data["HR"])[0]
         scene_qa = scene_qa_cc = None
         for chain in range(n_chains):
-            gen = torch.Generator(device=dev).manual_seed(_seed(base, idx, chain))
+            gen = torch.Generator(device=dev).manual_seed(derive_seed(base, idx, chain))
             t0 = time.time()
             pred = pipeline.super_resolve(sr_cube, generator=gen).cpu().numpy()
             total_time += time.time() - t0
@@ -277,7 +299,7 @@ def train(opt, seed=0, max_steps=None, device=None):
         absolute step (stable across restarts)."""
         for j in range(n):
             gen = torch.Generator(device=dev).manual_seed(
-                _seed(seed ^ 0x5CE9E5, start_step + 1 + j))
+                derive_seed(seed ^ 0x5CE9E5, start_step + 1 + j))
             yield {"HR": scene_cache.sample(gen, train_opt["batch_size"])}
 
     def _host_batches(loader):

@@ -184,3 +184,40 @@ def step_roofline(B, size, device_kind, **kw):
         # hbm) when ops alternate between the two bounds
         "attainable_s": sum(r["attainable_ms"] for r in rows) / 1e3,
     }
+
+
+def _conv_f32(B, res, cin, cout, k=3):
+    """An f32 stride-1 SAME conv: FLOPs, and its input and output read and
+    written once, weights once."""
+    px = B * res * res
+    return 2.0 * px * k * k * cin * cout, 4.0 * (px * (cin + cout) + k * k * cin * cout)
+
+
+def gae_forward_ops(B, size, n_subs=16, n_ovls=4, n_colors=102, n_feats=64, latent=3):
+    """Op list (name, flops, least f32 bytes) of ONE GAE forward (encode +
+    decode, ``models/gae.py``) of a (B, size, size, n_colors) cube: the
+    shared encoder and decoder over the B * G group images, the trunk over
+    the B merged cubes. Elementwise work, the band gathers and the overlap
+    average are left out."""
+    G = -(-(n_colors - n_ovls) // (n_subs - n_ovls))
+    ops = []
+
+    def branch(tag, b, cin, feats, n_blocks):
+        ops.append(Op(f"{tag}.head[{cin}->{feats}]", *_conv_f32(b, size, cin, feats)))
+        for i in range(n_blocks):  # SSB: 3x3 ResBlock, then 1x1 ResAttentionBlock + CALayer
+            for j in range(2):
+                ops.append(Op(f"{tag}.ssb{i}.spa{j}", *_conv_f32(b, size, feats, feats)))
+            for j in range(2):
+                ops.append(Op(f"{tag}.ssb{i}.spc{j}", *_conv_f32(b, size, feats, feats, k=1)))
+            red = feats // 3
+            ops.append(Op(f"{tag}.ssb{i}.ca", 2 * 2.0 * b * feats * red,
+                          4.0 * (2 * b * (feats + red) + 2 * feats * red)))
+
+    bg = B * G
+    branch("encoder", bg, n_subs, n_feats, 3)
+    ops.append(Op(f"encoder.final[{n_feats}->{latent}]", *_conv_f32(bg, size, n_feats, latent)))
+    branch("decoder", bg, latent, n_feats, 3)
+    ops.append(Op(f"decoder.final[{n_feats}->{n_subs}]", *_conv_f32(bg, size, n_feats, n_subs)))
+    branch("trunk", B, n_colors, 32, 2)
+    ops.append(Op(f"final[32->{n_colors}]", *_conv_f32(B, size, 32, n_colors)))
+    return ops

@@ -65,7 +65,7 @@ from hsi_dmgasr_tpu_torch.diffusion import gaussian as gaussian_mod
 from hsi_dmgasr_tpu_torch.io.convert_torch import load_jax_params
 from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
 from hsi_dmgasr_tpu_torch.models.gae import GAE
-from hsi_dmgasr_tpu_torch.models.networks import diffusion_for_phase
+from hsi_dmgasr_tpu_torch.models.networks import diffusion_for_phase, init_weights
 from hsi_dmgasr_tpu_torch.models.unet import GroupNorm, UNet
 from hsi_dmgasr_tpu_torch.utils import roofline
 from torch_port_weights import jax_variables, randomize
@@ -371,8 +371,29 @@ def test_cli_raises_without_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_gae_pretrained_file_is_refused(tmp_path, monkeypatch):
+    """GAE_PRETRAINED outside --small: a file that is not a whole-module
+    reference GAE is refused; a reference pickle (built here as the
+    reference saves one) is loaded through load_torch_gae, as the root
+    bench loads it, and benched: its band count sets the cube's, and a
+    t_start=2 cube runs on its weights."""
+    from test_torch_stage1 import GAE_KW, write_reference_pickle
+
+    args = bench.parse_args(["--t_start", "2", "--dtype", "f32", "--no-fuse"])
     ckpt = tmp_path / "GAE_4_Pav.pth"
-    ckpt.write_bytes(b"")
+    torch.save({"not": torch.zeros(1)}, ckpt)
     monkeypatch.setenv("GAE_PRETRAINED", str(ckpt))
-    with pytest.raises(NotImplementedError, match="load_torch_gae"):
-        bench.Bench(bench.parse_args([]), torch.device("cpu"))
+    with pytest.raises(ValueError, match="not a reference GAE"):
+        bench.Bench(args, torch.device("cpu"))
+
+    src = init_weights(GAE(**GAE_KW), torch.Generator().manual_seed(9))
+    write_reference_pickle(src, ckpt, monkeypatch)
+    model = bench.Bench(args, torch.device("cpu"))
+    assert model.gae_loaded and model.channels == 31 and model.n_groups == 5
+    for k, v in src.state_dict().items():
+        assert torch.equal(model.gae.state_dict()[k], v), k
+    cube = torch.rand((1, 16, 16, 31), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = src(cube)[0].clamp(0.0, 1.0)
+    torch.testing.assert_close(model.encode_decode(cube), want, rtol=0, atol=0)
+    out = model.super_resolve(cube, 0, t_start=2)
+    assert out.shape == cube.shape and torch.isfinite(out).all()

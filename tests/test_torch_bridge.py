@@ -94,7 +94,9 @@ def test_port_imports_no_jax():
     assert ROOT / "hsi_dmgasr_tpu_torch" / "tools" / "microbench_int8.py" in files
     for module in ("train/state.py", "train/stage2_driver.py", "data/imresize.py",
                    "data/hs_datasets.py", "data/loader.py", "data/device_cache.py",
-                   "utils/augment.py", "cli/sr_gae.py"):
+                   "utils/augment.py", "cli/sr_gae.py", "train/losses.py", "models/vgg.py",
+                   "train/stage1_gae.py", "data/interp.py", "data/mat_folder.py",
+                   "cli/ae.py", "cli/gae_test.py"):
         assert ROOT / "hsi_dmgasr_tpu_torch" / module in files, module
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in _FORBIDDEN]
@@ -136,3 +138,14 @@ def test_entry_points_default_to_cuda():
         stage2_driver.run_val_phase(train_opt)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sr_gae.main(["-c", "unused.json", "-p", "train"])
+
+    from hsi_dmgasr_tpu_torch.cli import ae, gae_test
+    from hsi_dmgasr_tpu_torch.train.stage1_gae import GAETrainer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GAETrainer(**GAE_KW)
+    assert GAETrainer(**GAE_KW, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ae.main(["--data", "unused"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gae_test.main(["--ckpt", "unused", "--data", "unused"])

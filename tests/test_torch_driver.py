@@ -181,17 +181,24 @@ def test_load_gae(tmp_path, gae_pth):
     back, _ = stage2_driver.load_gae({"gae": dict(checkpoint=str(npz), **GAE_KW)})
     for k, v in gae.state_dict().items():
         assert torch.equal(back.state_dict()[k], v), k
+    # a whole module that is not a reference GAE (the port's own class)
     pickle = tmp_path / "module.pth"
     torch.save(GAE(**GAE_KW), pickle)
-    with pytest.raises(ValueError, match="queue 1 item 6"):
+    with pytest.raises(ValueError, match="not a reference GAE"):
         stage2_driver.load_gae({"gae": dict(checkpoint=str(pickle), **GAE_KW)})
     with pytest.raises(ValueError, match="n_ovls"):
         stage2_driver.load_gae({"gae": {"checkpoint": gae_pth, "n_subs": 8}})
 
 
-def test_build_dataset_refuses_pairs():
-    with pytest.raises(NotImplementedError, match="mat_folder"):
-        stage2_driver.build_dataset({"datatype": "mat_pairs_train", "dataroot": "x"}, "train")
+def test_build_dataset_refuses_pairs(synth_data):
+    """The .mat pair folders are built now (tests/test_torch_mat_folder.py
+    holds their items); a datatype build_dataset does not know is refused."""
+    train = stage2_driver.build_dataset(
+        {"datatype": "mat_pairs_train", "dataroot": os.path.join(synth_data, "pairs", "train")},
+        "train", n_scale=2)
+    assert len(train) == 2 and train[0]["SR"].shape == train[0]["HR"].shape
+    with pytest.raises(NotImplementedError, match="lmdb"):
+        stage2_driver.build_dataset({"datatype": "lmdb", "dataroot": "x"}, "train")
 
 
 def test_parse_makes_the_experiment_tree_and_debug(tmp_path, synth_data, gae_pth):
