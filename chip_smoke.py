@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives six main paths. Three are x4 DMGASR on a
+checkout. It drives eight main paths. Four are x4 DMGASR on a
 512x512x102 Pavia-geometry cube at full width (UNet inner 64, mults
 1,2,4,8,8, res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16,
 n_ovls 4, n_feats 64, G=9; seeded random weights):
@@ -14,6 +14,11 @@ n_ovls 4, n_feats 64, G=9; seeded random weights):
   * configs/pavia_x4_r3.json: image_size 128, the chain entered at
     t_start=4, latent affine; attention at 64^2 and 32^2 stays below the
     flash gate. f32 activations. 220 fused-Block launches per cube.
+  * pavia_x4_r3_ddim: the same config with the DDIM sampler (4 steps,
+    eta 0, from noise: t_start removed, as the JAX package refuses it
+    with DDIM). 220 fused-Block launches per cube; one chain from a
+    seeded x_init is also run on the kernels' plain versions and held to
+    the kernels' chain.
   * configs/pavia_x4.json: image_size 64, the full T=20 chain, no affine;
     attention at the 128^2 level (16384 tokens, D=256) goes to the flash
     kernel, 5 layers per UNet forward. f32 activations. 100 flash and 1100
@@ -25,7 +30,7 @@ n_ovls 4, n_feats 64, G=9; seeded random weights):
     1100 fused Blocks and no flash; it prints the bench's JSON line (both
     cube times, the UNet step's roofline share).
 
-The fourth and fifth are the two training stages at the same full
+The fifth and sixth are the two training stages at the same full
 width, chained as a user chains them:
 
   * train_gae: stage-1 GAE training through the port's CLI (cli.ae, at
@@ -48,7 +53,19 @@ width, chained as a user chains them:
 Both train on the same 8 training scenes of 256^2 and validate on the
 same 3 val scenes of 128^2, written from a seed under build/scenes.
 
-The sixth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
+The seventh is unconditional generation, the discrete-t BatchNorm DDPM
+variant:
+
+  * sample_ddpm_16: configs/sample_ddpm_16.json at its full width (inner
+    64, mults 1,2,4,8,8, attn_res 16, image_size 128, linear T=2000),
+    seeded orthogonal weights, dropout 0: one train step of 4 HR images
+    of 128^2 x 3 on the card against the same step on the CPU (the loss,
+    every gradient, the BatchNorm running statistics after it), then
+    DDPMModel.sample of 2 images: the 2000-step ancestral chain when 2000
+    UNet forwards take at most 30 s, else DDIM over 100 steps. Its
+    Blocks are BatchNorm, so no kernel of the port runs.
+
+The eighth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
 
   * int8_probe: chains of 4000 dependent dots x @ w with a requantize
     step, at M = 4096 and (K, N) = (512, 512), (576, 256), (192, 256),
@@ -90,7 +107,8 @@ In order:
     step's share of its f32 roofline, seconds per validation cube. Then the probe:
     counts to 0, the probe run once, the exact launch counts, and the int8
     chains of the kernel and the library held equal bit for bit after 4000
-    links;
+    links. Then sample_ddpm_16: counts to 0, its train step against the
+    CPU's, one UNet forward timed, the sample drawn, no launch counted;
  4. for each recorded signature (f32 or bf16), on the card at that shape
     (B=9): kernel vs its plain PyTorch version (asserted within tolerance), the
     kernel's, the plain version's and one library call's times, and the
@@ -98,8 +116,9 @@ In order:
     graph, and each signature's and level's share of its bound and ratio
     to cuDNN; the flash kernel also at D=128 and at D=512 (S >= 8192) and
     at pavia_x4_r3's 64^2 attention, and at each of its shapes with bf16
-    q, k and v as well, each flash shape with the prepass's
-    device time (torch.profiler) and the einsum route's time beside it; the
+    q, k and v as well, each flash shape with the prepass's and the
+    attention kernel's device times (torch.profiler, which must see one
+    launch of each per call) and the einsum route's time beside it; the
     blocked dot at each probe case and dtype, with its share of the bound,
     TOP/s and ratio to the library call, and a 3-link captured chain
     against the same chain run eagerly;
@@ -110,7 +129,8 @@ In order:
 
 Details go to chiprun_out/chip_smoke.json. ``--profile`` adds one traced
 cube per path (the bench's t_start=4 row for bench_x4_bf16, one train
-step each for train_gae and train_r3): device time by kernel name
+step each for train_gae and train_r3, ten UNet forwards of the sampler
+for sample_ddpm_16): device time by kernel name
 (torch.profiler), the device's idle share and the seconds of each stage
 (GAE encode, reverse chain, GAE decode; for a stage-1 step: forward +
 loss, backward, Adam; for a stage-2 step: degradation, GAE encode, UNet
@@ -141,12 +161,17 @@ GAE_CFG = {"n_subs": 16, "n_ovls": 4, "n_colors": 102, "n_feats": 64, "G": 9}
 CUBE = (1, 512, 512, 102)
 FUSED, FLASH, DOT = "gn_swish_conv3x3", "flash_attention", "blocked_dot"
 PROBE = "int8_probe"
-# path -> (config, launches per cube of each kernel)
+# path -> (config, its model.diffusion changed by, launches per cube of each kernel)
+R3, R3_DDIM = "pavia_x4_r3", "pavia_x4_r3_ddim"
 PATHS = {
     # 55 fused Blocks per UNet forward x t_start=4; attention below the gate
-    "pavia_x4_r3": ("pavia_x4_r3.json", {FUSED: 220, FLASH: 0}),
+    R3: ("pavia_x4_r3.json", {}, {FUSED: 220, FLASH: 0}),
+    # the same with the DDIM sampler, 4 steps, eta 0; t_start removed (the JAX
+    # package refuses it with DDIM): 55 fused Blocks x 4 UNet forwards
+    R3_DDIM: ("pavia_x4_r3.json", {"sampler": "ddim", "ddim_steps": 4, "t_start": None},
+              {FUSED: 220, FLASH: 0}),
     # 55 fused Blocks and 5 flash attentions per forward x T=20
-    "pavia_x4": ("pavia_x4.json", {FUSED: 1100, FLASH: 100}),
+    "pavia_x4": ("pavia_x4.json", {}, {FUSED: 1100, FLASH: 100}),
 }
 # the bf16 flagship path, the port's bench at its defaults (512x512x102,
 # image_size 512, batch 1, bf16, fused): its two rows, each with its launches
@@ -163,6 +188,26 @@ TRAIN, TRAIN_STEPS = "train_r3", 12
 TRAIN_VAL = {FUSED: 55 * 4 * 3 * 3, FLASH: 0}
 TRAIN_SCENES, TRAIN_SCENE_HW, VAL_HW = 8, 256, 128
 UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN)
+# unconditional generation under configs/sample_ddpm_16.json at its full
+# width (the discrete-t BatchNorm UNet, unfused: no kernel of the port): one
+# train step of SAMPLE_BATCH HR images of 128^2 x 3 against the CPU's, then
+# DDPMModel.sample of SAMPLE_N images; the config's 2000-step ancestral chain
+# when SAMPLE_CHAIN_S holds 2000 UNet forwards, else DDIM over SAMPLE_DDIM_STEPS
+SAMPLE, SAMPLE_BATCH, SAMPLE_N = "sample_ddpm_16", 4, 2
+SAMPLE_CHAIN_S, SAMPLE_DDIM_STEPS = 30.0, 100
+# the BatchNorm running statistics after that step, card against CPU: max
+# |diff| over max |CPU| per buffer (means over 65536 values a channel)
+TOL_STEP_STATS = 1e-4
+# torch.profiler drops device events once a process has run a profiler
+# session and then launched many kernels: every flash row read 0 events in
+# --profile runs (the traced cubes come first, the int8 probe's and the
+# signature checks' launches before the flash rows), 1 of 10 after a
+# million small launches following one session, and a throwaway session
+# first did not always help. A fresh process's sessions saw every launch.
+# So the flash rows' device split is measured in a process of its own
+# (flash_split), each session must see every launch, and a short one is
+# measured once more.
+TRACE_ATTEMPTS = 2
 # stage-1 GAE training through the port's CLI (cli.ae) at the Pavia GAE's
 # width, device-resident scenes: 8 HR crops of 128^2 x 102 a step, so 72
 # group images through the shared encoder and decoder. 64 augmented items
@@ -501,36 +546,95 @@ def check_signature(sig, seed):
             "kernel_bound_frac": b_ms / kernel_ms}
 
 
-def flash_kernel_ms(fn, reps=5):
-    """Mean device milliseconds of one launch of the flash wrapper's bf16
-    prepass (kernels named to_bf16*; 0 where there is none) and of its
-    attention kernel (flash_*), from torch.profiler over `reps` calls,
-    with the launches of each it saw."""
+@contextmanager
+def traced():
+    """A torch.profiler session (CPU and CUDA) around the block, whose
+    device work is synchronised inside it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        yield prof
         torch.cuda.synchronize()
-    seen = {"to_bf16": [], "flash_": []}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for key, times in seen.items():
-                if key in e.name:
-                    times.append(e.time_range.elapsed_us() / 1e3)
-    return {key: (sum(t) / len(t) if t else 0.0, len(t)) for key, t in seen.items()}
 
 
-def check_flash(sig, seed):
+def flash_kernel_ms(fn, pre_pass, reps=5):
+    """Mean device milliseconds of one launch of the flash wrapper's bf16
+    prepass (kernels named to_bf16*) and of its attention kernel (flash_*),
+    from torch.profiler over `reps` calls, and the sessions it took. A
+    session must show `reps` launches of the attention kernel and, where
+    the wrapper has one (``pre_pass``), of the prepass, else none; after
+    TRACE_ATTEMPTS sessions that do not, it raises."""
+    from torch.autograd import DeviceType
+
+    want = {"to_bf16": reps if pre_pass else 0, "flash_": reps}
+    fn()
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with traced() as prof:
+            for _ in range(reps):
+                fn()
+        seen = {"to_bf16": [], "flash_": []}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for key, times in seen.items():
+                    if key in e.name:
+                        times.append(e.time_range.elapsed_us() / 1e3)
+        counts = {key: len(t) for key, t in seen.items()}
+        if counts == want:
+            out = {key: sum(t) / len(t) if t else 0.0 for key, t in seen.items()}
+            out.update(reps=reps, sessions=attempt)
+            return out
+        log(f"flash: session {attempt} saw {counts} launches, expected {want}")
+    raise AssertionError(f"flash: {TRACE_ATTEMPTS} profiler sessions saw {counts} launches of "
+                         f"{reps} calls, expected {want}")
+
+
+def flash_inputs(sig, seed):
+    """Strided q, k, v views of one seeded qkv tensor (f32 or bf16), as the
+    UNet makes them, and the scale."""
+    import torch
+
+    (b, s, h, d), dt = sig
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, h, 3 * d), generator=gen, device="cuda").to(dtype)
+    return (*qkv.split(d, dim=-1), 1.0 / math.sqrt(h * d))
+
+
+def flash_split_here(sigs):
+    """flash_kernel_ms of each (sig, seed) in this process."""
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+
+    out = []
+    for sig, seed in sigs:
+        q, k, v, scale = flash_inputs(sig, seed)
+        out.append(flash_kernel_ms(lambda: fa.flash_attention(q, k, v, scale),
+                                   sig[0][3] in fa.BF16_HEAD_DIMS))
+        del q, k, v
+    return out
+
+
+def flash_split(sigs):
+    """flash_kernel_ms of each (sig, seed), measured in a process of its own
+    (see TRACE_ATTEMPTS), which loads the flash kernel this run built."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+            "print(json.dumps(cs.flash_split_here(json.loads(sys.argv[2]))))")
+    proc = subprocess.run([sys.executable, "-c", code, ROOT, json.dumps(sigs)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the flash profile process failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def check_flash(sig, seed, split):
     """Flash kernel vs plain version on the card, on strided q, k, v views
     of one qkv tensor (f32 or bf16) as the UNet makes them, and the four
-    times, the prepass's share and the einsum route's time (attention.py's
-    matmul path, in the same dtype). The library yardstick is one
-    scaled_dot_product_attention on bf16 copies."""
+    times, the prepass's share (``split``, this signature's flash_split)
+    and the einsum route's time (attention.py's matmul path, in the same
+    dtype). The library yardstick is one scaled_dot_product_attention on
+    bf16 copies."""
     import torch
     import torch.nn.functional as F
 
@@ -539,10 +643,7 @@ def check_flash(sig, seed):
 
     (b, s, h, d), dt = sig
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((b, s, h, 3 * d), generator=gen, device="cuda").to(dtype)
-    q, k, v = qkv.split(d, dim=-1)
-    scale = 1.0 / math.sqrt(h * d)
+    q, k, v, scale = flash_inputs(sig, seed)
     got = fa.flash_attention(q, k, v, scale)
     want = fa.flash_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
@@ -556,19 +657,18 @@ def check_flash(sig, seed):
     del got, want, diff
 
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale), reps=5)
-    split = flash_kernel_ms(lambda: fa.flash_attention(q, k, v, scale))
-    (pre_ms, n_pre), (attn_ms, n_attn) = split["to_bf16"], split["flash_"]
+    pre_ms, attn_ms = split["to_bf16"], split["flash_"]
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale), reps=2)
     einsum_ms = cuda_ms(lambda: attn._einsum_attention(q, k, v, scale), reps=3)
     qb, kb, vb = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, scale=scale), reps=5)
     del qb, kb, vb
     flops = 4 * b * h * s * s * d
-    b_ms, b_by = pick_bound(4 * qkv.element_size() * b * s * h * d, flops)
+    b_ms, b_by = pick_bound(4 * q.element_size() * b * s * h * d, flops)
     return {"signature": f"{dt} B={b} S={s} H={h} D={d}", "errors": {"out": err}, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "prepass_ms": pre_ms, "prepass_share": pre_ms / ms, "attention_kernel_ms": attn_ms,
-            "profiled_launches": {"prepass": n_pre, "attention": n_attn},
+            "profiled_reps": split["reps"], "profiler_sessions": split["sessions"],
             "einsum_ms": einsum_ms, "tflops": flops / ms / 1e9}
 
 
@@ -634,12 +734,19 @@ def check_dot(case, dt, seed):
 # ------------------------------------------------------------- the slice
 
 
-def build_pipeline(config):
+def build_pipeline(config, diffusion):
+    """The config's pipeline with fused Blocks, its model.diffusion updated
+    by ``diffusion`` (a None value removes the key)."""
     from hsi_dmgasr_tpu_torch.config import load
     from hsi_dmgasr_tpu_torch.pipeline import DMGASRPipeline
 
     opt = load(os.path.join(ROOT, "configs", config))
     opt["model"]["unet"]["fuse"] = True
+    for k, v in diffusion.items():
+        if v is None:
+            opt["model"]["diffusion"].pop(k, None)
+        else:
+            opt["model"]["diffusion"][k] = v
     return DMGASRPipeline(opt, None, GAE_CFG, seed=0)
 
 
@@ -685,10 +792,8 @@ def profile_cube(run_cube, stages):
     function of the previous stage's result that ends in a synchronize."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         run_cube()
         torch.cuda.synchronize()
@@ -710,21 +815,27 @@ def profile_cube(run_cube, stages):
         torch.cuda.synchronize()
         seconds[name + "_s"] = time.perf_counter() - t0
     del state
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    # the port's kernels the trace saw, beside the launches counted (see
+    # TRACE_ATTEMPTS: a trace late in the process may miss events)
+    seen = {FUSED: sum(n for k, (_, n) in by_name.items() if "gn_swish_conv3x3" in k),
+            FLASH: sum(n for k, (_, n) in by_name.items() if "flash_" in k)}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_events": seen,
             "idle_share": 1.0 - busy_ms / wall_ms, "stages": seconds,
             "kernels": [{"name": k[:120], "ms": ms, "calls": n} for k, (ms, n) in top]}
 
 
-def run_path(name, config, expected, cube, profile):
-    """Record, count, check and time one main path. Returns its report
-    and the launch signatures it recorded."""
+def run_path(name, config, diffusion, expected, cube, profile):
+    """Record, count, check and time one main path (its config's
+    model.diffusion updated by ``diffusion``). Returns its report and the
+    launch signatures it recorded. A DDIM path also runs one chain twice
+    from the same x_init, with the kernels and on their plain versions."""
     import torch
 
     from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
 
-    pipe = build_pipeline(config)
+    pipe = build_pipeline(config, diffusion)
     fused_calls, flash_calls = {}, {}
     # the counted main-path run, which also records the launch signatures
     fc.LAUNCHES = 0
@@ -754,9 +865,11 @@ def run_path(name, config, expected, cube, profile):
         pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(3 + r))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    report = {"config": config, "cube_seconds": statistics.median(times), "cube_times": times,
-              "peak_memory_gib": peak_gib, "launches": launches}
+    report = {"config": config, "diffusion": diffusion, "cube_seconds": statistics.median(times),
+              "cube_times": times, "peak_memory_gib": peak_gib, "launches": launches}
     log(f"[{name}] cube seconds (median of 3): {report['cube_seconds']:.4f} {times}")
+    if diffusion.get("sampler") == "ddim":
+        report["chain_err"] = check_chain(name, pipe, cube)
 
     # full-width UNet forward, kernels vs plain versions, on the module the
     # cubes sampled
@@ -791,10 +904,30 @@ def run_path(name, config, expected, cube, profile):
     return report, fused_calls, flash_calls
 
 
+def check_chain(name, pipe, cube):
+    """One reverse chain of the path's sampler on the card from a seeded
+    x_init, with the kernels and again on their plain versions: elementwise
+    within TOL_UNET."""
+    import torch
+
+    with torch.inference_mode():
+        cond = pipe._fold(pipe.encode(cube))
+        x_init = torch.randn(cond.shape, generator=torch.Generator(device="cuda").manual_seed(8),
+                             device="cuda")
+        got = pipe.ddpm.super_resolution(cond, x_init=x_init)
+        with plain_kernels():
+            want = pipe.ddpm.super_resolution(cond, x_init=x_init)
+    err = divergence(got, want)
+    log(f"[{name}] one chain (B=9, 512^2) from the same x_init, kernels vs plain: {err}")
+    if not within(got, want, TOL_UNET):
+        raise AssertionError(f"[{name}] chain with the kernels vs plain: {err}")
+    return err
+
+
 def log_profile(name, prof):
     log(f"[{name}] profile: wall {prof['wall_ms']:.1f} ms, device busy "
         f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.4f}, "
-        f"stages {prof['stages']}")
+        f"port kernel events {prof['kernel_events']}, stages {prof['stages']}")
     for k in prof["kernels"][:12]:
         log(f"  {k['ms']:9.3f} ms  x{k['calls']:<5} {k['name'][:90]}")
 
@@ -1221,6 +1354,138 @@ def run_train(profile, dirs, gae_ckpt):
     return report, fused_calls, flash_calls
 
 
+def sample_opt():
+    """configs/sample_ddpm_16.json at its full width, dropout 0 (so the card
+    and the CPU take the same step)."""
+    from hsi_dmgasr_tpu_torch.config import load
+
+    opt = load(os.path.join(ROOT, "configs", "sample_ddpm_16.json"))
+    opt["model"]["unet"]["dropout"] = 0.0
+    return opt
+
+
+def sample_step_against_cpu(opt, state_dict):
+    """One train step of the ddpm variant on SAMPLE_BATCH seeded HR images of
+    image_size^2 x 3 ({"HR": x, "SR": None}), with injected t and noise, on
+    the card and on the CPU from the same weights and running statistics:
+    the loss (TOL_STEP_LOSS), every gradient (TOL_STEP_GRAD of the largest
+    |g|), and the BatchNorm running statistics after the step (moved, and
+    within TOL_STEP_STATS of the CPU's). Returns the comparison and the
+    card's step seconds."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
+
+    size = opt["model"]["diffusion"]["image_size"]
+    gen = torch.Generator().manual_seed(13)
+    batch = {"HR": torch.randn((SAMPLE_BATCH, size, size, 3), generator=gen), "SR": None}
+    t = torch.randint(0, opt["model"]["beta_schedule"]["train"]["n_timestep"],
+                      (SAMPLE_BATCH,), generator=gen)
+    noise = torch.randn(batch["HR"].shape, generator=gen)
+    before = {n: b.clone() for n, b in state_dict.items() if "running_" in n}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = DDPMModel(opt, device=dev)
+        model.unet.load_state_dict(state_dict)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(model.compute_grads(batch, t=t, noise=noise))
+        grads = {n: p.grad.detach().cpu() for n, p in model.unet.named_parameters()}
+        model.apply_gradients()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stats = {n: b.detach().cpu() for n, b in model.unet.named_buffers() if n in before}
+        out[dev] = (loss, grads, stats, secs)
+        log(f"[{SAMPLE}] one train step of {SAMPLE_BATCH} x {size}^2 x 3 on {dev}: {secs:.2f} s")
+        del model
+    (loss_cpu, g_cpu, s_cpu, _), (loss_gpu, g_gpu, s_gpu, step_s) = out["cpu"], out["cuda"]
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    res = {"loss_cpu": loss_cpu, "loss_card": loss_gpu,
+           "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+           "grad_max_abs_err": max((g_gpu[n] - g).abs().max().item() for n, g in g_cpu.items()),
+           "grad_max_abs": gmax, "stats_buffers": len(s_cpu),
+           "stats_worst_rel_err": max(((s_gpu[n] - v).abs().max() / v.abs().max()).item()
+                                      for n, v in s_cpu.items()),
+           "stats_unmoved": sum(torch.equal(s_cpu[n], v) for n, v in before.items())}
+    log(f"[{SAMPLE}] card vs CPU step: {res}")
+    if (res["loss_rel_err"] > TOL_STEP_LOSS or res["grad_max_abs_err"] > TOL_STEP_GRAD * gmax
+            or res["stats_worst_rel_err"] > TOL_STEP_STATS or res["stats_unmoved"]
+            or not before):
+        raise AssertionError(f"[{SAMPLE}] card step vs CPU step: {res}")
+    return res, step_s
+
+
+def run_sample(profile):
+    """Unconditional generation under configs/sample_ddpm_16.json at its full
+    width on seeded orthogonal weights: counts to 0, one train step against
+    the CPU's (sample_step_against_cpu), then DDPMModel.sample of SAMPLE_N
+    images: one UNet forward timed first, and the config's 2000-step
+    ancestral chain run when 2000 forwards take at most SAMPLE_CHAIN_S,
+    else DDIM over SAMPLE_DDIM_STEPS. Checks the samples finite and no
+    kernel launch; reads the peak memory."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
+
+    opt = sample_opt()
+    fc.LAUNCHES = fa.LAUNCHES = bd.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    ddpm = DDPMModel(opt, seed=0)
+    report = {"config": "sample_ddpm_16.json", "card_vs_cpu_step": None}
+    report["card_vs_cpu_step"], report["train_step_seconds"] = sample_step_against_cpu(
+        opt, {k: v.cpu() for k, v in ddpm.unet.state_dict().items()})
+    size, T = opt["model"]["diffusion"]["image_size"], ddpm.val_diffusion.schedule.num_timesteps
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((SAMPLE_N, size, size, 3), generator=gen, device="cuda")
+    t = torch.full((SAMPLE_N,), T - 1, dtype=torch.int32, device="cuda")
+    times = []
+    with torch.inference_mode():
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ddpm._denoise(x, t)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    fwd_s = statistics.median(times[2:])
+    ancestral = fwd_s * T <= SAMPLE_CHAIN_S
+    if not ancestral:
+        opt["model"]["diffusion"].update(sampler="ddim", ddim_steps=SAMPLE_DDIM_STEPS)
+    chain = f"ancestral, {T} steps" if ancestral else f"DDIM, {SAMPLE_DDIM_STEPS} steps"
+    log(f"[{SAMPLE}] one UNet forward (B={SAMPLE_N}, {size}^2): {fwd_s * 1e3:.2f} ms; x {T} = "
+        f"{fwd_s * T:.1f} s against {SAMPLE_CHAIN_S} s: the chain is {chain}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ddpm.sample(SAMPLE_N, generator=gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
+    log(f"[{SAMPLE}] sample of {tuple(out.shape)}: {secs:.2f} s ({chain}), peak memory "
+        f"{peak_gib:.2f} GiB, kernel launches {launches}, range [{out.min().item():.3f}, "
+        f"{out.max().item():.3f}]")
+    if tuple(out.shape) != (SAMPLE_N, size, size, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[{SAMPLE}] samples {tuple(out.shape)} or non-finite values")
+    if launches != {FUSED: 0, FLASH: 0, DOT: 0}:
+        raise AssertionError(f"[{SAMPLE}] launched {launches}, expected no kernel")
+    report.update(unet_forward_s=fwd_s, chain=chain, sample_seconds=secs,
+                  peak_memory_gib=peak_gib, launches=launches)
+    if profile:
+        def forwards():
+            with torch.inference_mode():
+                for _ in range(10):
+                    ddpm._denoise(x, t)
+
+        report["profile"] = profile_cube(forwards, (("unet_forward",
+                                                     lambda _: forwards()),))
+        log_profile(SAMPLE, report["profile"])
+    del ddpm, out, x
+    torch.cuda.empty_cache()
+    return report
+
+
 def gae_step_against_cpu(state_dict, crop, vgg=None, bands=None):
     """One stage-1 step at batch 1 on the card and on the CPU from the same
     weights and the same crop: the loss within TOL_STEP_LOSS and each
@@ -1556,14 +1821,17 @@ def main():
     # ---- 3. the main paths
     cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
     report["paths"] = {}
-    runs = {path: run_path(path, config, expected, cube, args.profile)
-            for path, (config, expected) in PATHS.items()}
+    runs = {path: run_path(path, config, diffusion, expected, cube, args.profile)
+            for path, (config, diffusion, expected) in PATHS.items()}
+    log(f"[{R3_DDIM}] cube seconds {runs[R3_DDIM][0]['cube_seconds']:.4f} beside "
+        f"{R3}'s {runs[R3][0]['cube_seconds']:.4f} (4 UNet forwards each)")
     del cube
     torch.cuda.empty_cache()
     runs.update(run_bench(args.profile))
     dirs = make_train_data(os.path.join(ROOT, "build", "scenes"))
     report["paths"][TRAIN_GAE], gae_ckpt = run_train_gae(args.profile, dirs)
     runs[TRAIN] = run_train(args.profile, dirs, gae_ckpt)
+    report["paths"][SAMPLE] = run_sample(args.profile)
     fused_sigs, flash_sigs = {}, {}
     for path, (path_report, fused_calls, flash_calls) in runs.items():
         report["paths"][path] = path_report
@@ -1590,15 +1858,19 @@ def main():
     extra = [((shape, dt), dict.fromkeys(UNET_PATHS, 0)) for dt in ("f32", "bf16")
              for shape in FLASH_EXTRA + tuple(shape for shape, _ in flash_sigs)]
     extra = [e for e in extra if e[0] not in flash_sigs]
-    for i, (sig, counts) in enumerate(list(flash_sigs.items()) + extra):
-        row = check_flash(sig, seed=200 + i)
+    flash_all = list(flash_sigs.items()) + extra
+    torch.cuda.empty_cache()
+    splits = flash_split([(sig, 200 + i) for i, (sig, _) in enumerate(flash_all)])
+    for i, ((sig, counts), split) in enumerate(zip(flash_all, splits)):
+        row = check_flash(sig, 200 + i, split)
         row["counts"] = counts
         flash_rows.append(row)
         err = row["errors"]["out"]
         log(f"flash {row['signature']:<30} {counts} abs {err['max_abs']:.2e} rel "
             f"{err['max_rel']:.2e} | ms {row['ms']:.3f} ({row['tflops']:.1f} TFLOP/s; prepass "
             f"{row['prepass_ms']:.3f} ms, {row['prepass_share']:.3f} of it; attention kernel "
-            f"{row['attention_kernel_ms']:.3f}; profiled {row['profiled_launches']}) plain "
+            f"{row['attention_kernel_ms']:.3f}; {row['profiled_reps']} profiled launches of each, "
+            f"session {row['profiler_sessions']}) plain "
             f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
             f"einsum {row['einsum_ms']:.3f} bound {row['bound_ms']:.3f} ({row['bound_by']})")
         torch.cuda.empty_cache()
@@ -1664,7 +1936,7 @@ def main():
     if args.profile:
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:
             json.dump({p: report["paths"][p].pop("profile")
-                       for p in (*PATHS, BENCH, TRAIN_GAE, TRAIN)}, f,
+                       for p in (*PATHS, BENCH, TRAIN_GAE, TRAIN, SAMPLE)}, f,
                       indent=1)
     report["script_s"] = time.perf_counter() - t_script
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

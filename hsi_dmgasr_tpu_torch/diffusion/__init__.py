@@ -1,6 +1,6 @@
-"""Beta schedules and the conditional reverse chain."""
+"""Beta schedules, the SR3 and DDPM diffusions and their samplers."""
 
-from .gaussian import GaussianDiffusion
+from .gaussian import DDPMDiffusion, GaussianDiffusion
 from .schedules import DiffusionSchedule, make_beta_schedule
 
-__all__ = ["DiffusionSchedule", "GaussianDiffusion", "make_beta_schedule"]
+__all__ = ["DDPMDiffusion", "DiffusionSchedule", "GaussianDiffusion", "make_beta_schedule"]

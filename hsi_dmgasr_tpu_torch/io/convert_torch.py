@@ -4,12 +4,16 @@ The port's modules carry the reference's torch state_dict keys, so a
 reference ``.pth`` state_dict loads as it is (``load_state_dict``). A
 param tree of the JAX package (nested dicts of arrays, flax layout) loads
 through ``load_jax_params``: each key of the module's state_dict is
-mapped to its flax path by the port's own copy of the GAE and SR3 UNet
-rules of ``hsi_dmgasr_tpu/io/convert_torch.py:torch_key_to_flax_path``,
+mapped to its flax path by the port's own copy of the GAE and SR3/DDPM
+UNet rules of ``hsi_dmgasr_tpu/io/convert_torch.py:torch_key_to_flax_path``,
 and the array is brought back to torch layout (HWIO -> OIHW conv
-kernels, (in, out) -> (out, in) linear kernels, GroupNorm ``scale`` ->
-``weight``). ``export_jax_params`` is its inverse: a module's weights as
-the flat flax-path dict of numpy arrays, in the JAX layouts.
+kernels, (in, out) -> (out, in) linear kernels, norm ``scale`` ->
+``weight``). A module with BatchNorm (the 'ddpm' UNet) reads its norms
+under ``bn`` where the rules say ``gn``, and its running statistics from
+the ``batch_stats`` collection (``mean``, ``var``), as the JAX package's
+``state_dict_to_flax`` writes them. ``export_jax_params`` is the
+inverse: a module's weights (or running statistics) as the flat
+flax-path dict of numpy arrays, in the JAX layouts.
 
 The shipped GAE checkpoints are whole-module pickles: ``load_torch_gae``
 reads them through stub classes (a copy of the JAX module's unpickler),
@@ -29,14 +33,15 @@ _RULES = [
     (re.compile(r"^Decoder\."), "decoder/"),
     # --- SR3 UNet (model/sr3_modules/unet.py)
     (re.compile(r"^denoise_fn\."), ""),  # GaussianDiffusion wrapper prefix
-    (re.compile(r"^noise_level_mlp\.1\."), "noise_mlp_lin0/"),
-    (re.compile(r"^noise_level_mlp\.3\."), "noise_mlp_lin1/"),
+    (re.compile(r"^(noise_level_mlp|time_mlp)\.1\."), "noise_mlp_lin0/"),
+    (re.compile(r"^(noise_level_mlp|time_mlp)\.3\."), "noise_mlp_lin1/"),
     (re.compile(r"^downs\.(\d+)\.conv\."), r"downs_\1_conv/"),  # Downsample
     (re.compile(r"^ups\.(\d+)\.conv\."), r"ups_\1_conv/"),  # Upsample
     (re.compile(r"^downs\.(\d+)\."), r"downs_\1/"),
     (re.compile(r"^ups\.(\d+)\."), r"ups_\1/"),
     (re.compile(r"^mid\.(\d+)\."), r"mid_\1/"),
     (re.compile(r"\bnoise_func\.noise_func\.0\."), "noise_func/func/"),
+    (re.compile(r"\bmlp\.1\."), "noise_func/func/"),  # the ddpm variant's time head
     (re.compile(r"\b(block1|block2|final_conv)\.block\.0\."), r"\1/norm/gn/"),
     (re.compile(r"\b(block1|block2|final_conv)\.block\.3\."), r"\1/conv/"),
     (re.compile(r"\battn\.norm\."), "attn/norm/gn/"),
@@ -75,11 +80,28 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _flax_path(key, like):
+_STATS = {"running_mean": "mean", "running_var": "var"}
+
+
+def _has_bn(state_dict):
+    """Whether a state_dict holds BatchNorm statistics (the JAX package's
+    ``has_bn``: then every norm is under ``bn``, not ``gn``)."""
+    return any(k.endswith("running_mean") for k in state_dict)
+
+
+def _jax_leaf(key, like, bn):
+    """(collection, flax path) of one state_dict key; None for
+    ``num_batches_tracked``, which the JAX package does not keep."""
+    if key.endswith("num_batches_tracked"):
+        return None
     path = torch_key_to_flax_path(key)
+    if bn:
+        path = tuple("bn" if p == "gn" else p for p in path)
+    if path[-1] in _STATS:
+        return "batch_stats", path[:-1] + (_STATS[path[-1]],)
     if like.ndim == 1 and path[-1] == "kernel":
-        path = path[:-1] + ("scale",)  # GroupNorm weight
-    return path
+        path = path[:-1] + ("scale",)  # a norm's weight
+    return "params", path
 
 
 def _to_torch_layout(arr, like):
@@ -93,18 +115,26 @@ def _to_torch_layout(arr, like):
 
 
 def load_jax_params(module, flax_params):
-    """Copy a JAX param tree (``{'params': tree}`` or the tree itself)
-    into ``module``. Every module key must find its leaf and every leaf
-    must be used; returns the module."""
-    tree = flax_params.get("params", flax_params)
-    flat = {path: np.asarray(v) for path, v in _flatten(tree)}
+    """Copy a JAX variable tree (``{'params': tree[, 'batch_stats': tree]}``
+    or the params tree itself) into ``module``. Every module key must find
+    its leaf and every leaf must be used (``num_batches_tracked`` keeps the
+    module's value); returns the module."""
+    trees = ({c: flax_params[c] for c in ("params", "batch_stats") if c in flax_params}
+             if "params" in flax_params else {"params": flax_params})
+    flat = {(c,) + path: np.asarray(v) for c, tree in trees.items()
+            for path, v in _flatten(tree)}
     sd = module.state_dict()
+    bn = _has_bn(sd)
     used = set()
     new = {}
     for key, like in sd.items():
-        path = _flax_path(key, like)
+        leaf = _jax_leaf(key, like, bn)
+        if leaf is None:
+            new[key] = like
+            continue
+        path = (leaf[0],) + leaf[1]
         if path not in flat:
-            raise KeyError(f"{key}: no JAX param at {'/'.join(path)}")
+            raise KeyError(f"{key}: no JAX {leaf[0]} at {'/'.join(leaf[1])}")
         used.add(path)
         new[key] = _to_torch_layout(flat[path], like)
     unused = sorted("/".join(p) for p in set(flat) - used)
@@ -114,19 +144,25 @@ def load_jax_params(module, flax_params):
     return module
 
 
-def export_jax_params(module):
-    """``module``'s weights as ``{flax path tuple: f32 numpy array}``, the
-    layouts of the JAX package (OIHW -> HWIO conv kernels, (out, in) ->
-    (in, out) linear kernels, GroupNorm ``weight`` -> ``scale``): the
-    inverse of ``load_jax_params``."""
+def export_jax_params(module, collection="params"):
+    """``module``'s weights (``collection="params"``) or BatchNorm running
+    statistics (``"batch_stats"``) as ``{flax path tuple: f32 numpy
+    array}``, the layouts of the JAX package (OIHW -> HWIO conv kernels,
+    (out, in) -> (in, out) linear kernels, norm ``weight`` -> ``scale``):
+    the inverse of ``load_jax_params``."""
+    sd = module.state_dict()
+    bn = _has_bn(sd)
     flat = {}
-    for key, v in module.state_dict().items():
+    for key, v in sd.items():
+        leaf = _jax_leaf(key, v, bn)
+        if leaf is None or leaf[0] != collection:
+            continue
         arr = v.detach().float().cpu().numpy()
         if arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         elif arr.ndim == 2:
             arr = arr.T  # (out, in) -> (in, out)
-        flat[_flax_path(key, v)] = np.ascontiguousarray(arr)
+        flat[leaf[1]] = np.ascontiguousarray(arr)
     return flat
 
 

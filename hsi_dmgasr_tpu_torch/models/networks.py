@@ -1,12 +1,15 @@
-"""Network factory + weight init (reference model/networks.py), SR3 only.
+"""Network factory + weight init (reference model/networks.py).
 
 Port of ``define_G`` / ``diffusion_for_phase`` / ``init_weights`` from
-``hsi_dmgasr_tpu/models/networks.py`` for ``which_model_G = 'sr3'``
-(continuous noise level, GroupNorm). ``init_weights`` follows the JAX
+``hsi_dmgasr_tpu/models/networks.py``: ``which_model_G = 'sr3'`` builds
+the continuous-noise-level GroupNorm UNet with ``GaussianDiffusion``,
+``'ddpm'`` the discrete-t BatchNorm UNet with ``DDPMDiffusion``; both
+read ``model.diffusion.conditional``. ``init_weights`` follows the JAX
 package's rules for ``init_type`` 'orthogonal' (what ``DDPMModel`` uses,
 as the reference does at networks.py:110-112), 'normal' and 'kaiming':
-every weight with two or more dims is re-drawn, every GroupNorm scale
-goes to 1 and every other leaf, biases included, to 0. ``init_type``
+every weight with two or more dims is re-drawn, every norm scale goes
+to 1 and every other leaf, biases included, to 0 (buffers, such as
+BatchNorm's running statistics, are left as they are). ``init_type``
 'torch' (the default) is the port's own seeded init for modules the JAX
 package initialises with flax's defaults (the GAE, the bench): torch's
 U(+-1/sqrt(fan_in)) for conv and linear weights and biases, GroupNorm
@@ -20,18 +23,24 @@ import math
 import torch
 from torch import nn
 
-from ..diffusion.gaussian import GaussianDiffusion
+from ..diffusion.gaussian import DDPMDiffusion, GaussianDiffusion
 from ..diffusion.schedules import DiffusionSchedule
 from .unet import UNet
 
 
+def _which(model_opt):
+    which = model_opt.get("which_model_G", "sr3")
+    if which not in ("sr3", "ddpm"):
+        raise ValueError(f"which_model_G={which!r}: 'sr3' or 'ddpm'")
+    return which
+
+
 def define_G(opt):
     """(unet, diffusion with the TRAIN schedule) from a reference-schema
-    config dict. ``model.unet.fuse`` turns on the fused kernels."""
+    config dict. ``model.unet.fuse`` turns on the fused kernels (GroupNorm
+    Blocks only: the 'ddpm' variant's are BatchNorm)."""
     model_opt = opt["model"]
-    which = model_opt.get("which_model_G", "sr3")
-    if which != "sr3":
-        raise NotImplementedError(f"which_model_G={which!r}: only 'sr3' is ported")
+    ddpm = _which(model_opt) == "ddpm"
     unet_opt = model_opt["unet"]
     unet = UNet(
         in_channel=unet_opt["in_channel"],
@@ -44,26 +53,29 @@ def define_G(opt):
         dropout=unet_opt.get("dropout") or 0.0,
         image_size=model_opt["diffusion"]["image_size"],
         fuse_blocks=bool(unet_opt.get("fuse")),
+        time_embedding="discrete" if ddpm else "continuous",
+        norm="batch" if ddpm else "group",
     )
     return unet, diffusion_for_phase(opt, "train")
 
 
 def diffusion_for_phase(opt, phase):
-    """GaussianDiffusion with the phase's beta schedule
-    (model/model.py:87-94 schedule switching), ``model.loss_type`` (l1 by
-    default) and ``model.diffusion.loss_weight`` ({"type": "min_snr",
-    "gamma": cap}, the JAX package's beyond-reference knob)."""
+    """GaussianDiffusion ('sr3') or DDPMDiffusion ('ddpm') with the phase's
+    beta schedule (model/model.py:87-94 schedule switching),
+    ``model.diffusion.conditional`` (true by default), ``model.loss_type``
+    (l1 by default) and ``model.diffusion.loss_weight`` ({"type":
+    "min_snr", "gamma": cap}, the JAX package's beyond-reference knob)."""
     model_opt = opt["model"]
-    if not model_opt["diffusion"].get("conditional", True):
-        raise NotImplementedError("only the conditional (SR3) chain is ported")
+    cls = DDPMDiffusion if _which(model_opt) == "ddpm" else GaussianDiffusion
     lw = model_opt["diffusion"].get("loss_weight")
     if lw is not None:
         kind = lw.get("type")
         if kind != "min_snr":
             raise ValueError(f"unknown model.diffusion.loss_weight type {kind!r}")
         lw = (kind, float(lw.get("gamma", 5.0)))
-    return GaussianDiffusion(DiffusionSchedule.from_config(model_opt["beta_schedule"][phase]),
-                             loss_type=model_opt.get("loss_type") or "l1", loss_weight=lw)
+    return cls(DiffusionSchedule.from_config(model_opt["beta_schedule"][phase]),
+               loss_type=model_opt.get("loss_type") or "l1", loss_weight=lw,
+               conditional=model_opt["diffusion"].get("conditional", True))
 
 
 @torch.no_grad()
@@ -85,7 +97,7 @@ def init_weights(module, generator, init_type="torch", std=0.02, scale=1.0):
                         * torch.randn(p.shape, generator=generator, dtype=p.dtype))
             else:
                 raise NotImplementedError(init_type)
-        elif name.endswith("weight"):  # a GroupNorm scale
+        elif name.endswith("weight"):  # a norm scale
             p.fill_(1.0)
         else:
             p.zero_()

@@ -1,15 +1,25 @@
-"""SR3 denoising UNet (PyTorch, NHWC activations).
+"""SR3/DDPM denoising UNet (PyTorch, NHWC activations).
 
-Port of the SR3 variant of ``hsi_dmgasr_tpu/models/unet.py``: continuous
-noise-level embedding, GroupNorm, additive noise injection
-(reference model/sr3_modules/unet.py:18-263). Module names give the
-reference's torch keys (``noise_level_mlp.1``, ``downs.N``, ``mid.N``,
-``ups.N``, ``block1.block.0/3``, ``noise_func.noise_func.0``,
-``res_conv``, ``attn.norm/qkv/out``, ``final_conv.block.0/3``), so
-reference ``.pth`` state_dicts load directly.
+Port of ``hsi_dmgasr_tpu/models/unet.py``. One module covers both
+reference variants (reference model/networks.py:85-88 picks per
+``which_model_G``):
 
-``fuse_blocks=True`` (in eval mode) runs every resblock Block and the
-final conv through the fused GroupNorm -> swish -> conv3x3 kernel
+  * SR3 (``time_embedding="continuous"``, ``norm="group"``): the WaveGrad
+    encoding of the continuous noise level, GroupNorm, additive noise
+    injection x + Linear(emb) (sr3_modules/unet.py:18-263);
+  * DDPM (``time_embedding="discrete"``, ``norm="batch"``): the sinusoidal
+    embedding of the integer timestep, BatchNorm with flax's rules (the
+    biased batch variance and momentum 0.9 for the running statistics),
+    injection x + Linear(swish(emb)) (ddpm_modules/unet.py:19-110).
+
+Module names give the reference's torch keys (``noise_level_mlp.1`` or
+``time_mlp.1``, ``downs.N``, ``mid.N``, ``ups.N``, ``block1.block.0/3``,
+``noise_func.noise_func.0`` or ``mlp.1``, ``res_conv``,
+``attn.norm/qkv/out``, ``final_conv.block.0/3``), so reference ``.pth``
+state_dicts load directly.
+
+``fuse_blocks=True`` (in eval mode) runs every GroupNorm resblock Block
+and the final conv through the fused GroupNorm -> swish -> conv3x3 kernel
 (kernels/fused_conv.py) with the JAX package's routing: block1 takes the
 time bias, emits its output's per-row moments and folds the 1x1
 res_conv; block2 takes the residual and block1's moments; the skip stack
@@ -17,11 +27,13 @@ carries (tensor, moments) so up-path GroupNorms need no stats pass; the
 skip rides the kernel as a second source per ``fuse_skip`` ("auto": only
 when dim_out < 128), and boundary convs and attention reset the moment
 chain. ``fuse_stats=False`` turns the moment chain off (every fused
-GroupNorm reduces its own input).
+GroupNorm reduces its own input). The kernel is a GroupNorm kernel: the
+BatchNorm variant keeps its Blocks unfused, as the JAX package's gate
+does, and only its up path takes the exact dilated conv.
 
 Mixed precision follows the JAX package: the module's dtype is its
 weights' (``.to(torch.bfloat16)`` for bf16 inference), the activations
-follow the input's dtype, GroupNorm computes in f32 and rounds once, and
+follow the input's dtype, the norms compute in f32 and round once, and
 the noise encoding stays in the noise level's dtype.
 """
 
@@ -52,6 +64,24 @@ def continuous_noise_encoding(noise_level, dim):
     return torch.cat([torch.sin(enc), torch.cos(enc)], -1)
 
 
+def discrete_time_encoding(t, dim):
+    """Sinusoidal embedding of the integer timestep (ddpm_modules/unet.py:19-34):
+    (B,) -> (B, dim) as [sin(t f), cos(t f)], f = 10000^(-2k/dim), in f32."""
+    inv_freq = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=t.device)
+                         * (-math.log(10000.0) / dim))
+    sin_in = t.reshape(-1).float()[:, None] * inv_freq[None, :]
+    return torch.cat([torch.sin(sin_in), torch.cos(sin_in)], -1)
+
+
+class TimeEmbedding(nn.Module):
+    def __init__(self, dim):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, t):
+        return discrete_time_encoding(t, self.dim)
+
+
 class PositionalEncoding(nn.Module):
     def __init__(self, dim):
         super().__init__()
@@ -74,6 +104,46 @@ class GroupNorm(nn.GroupNorm):
         y = F.group_norm(x.permute(0, 3, 1, 2).float(), self.num_groups,
                          self.weight.float(), self.bias.float(), self.eps)
         return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over (N, H, W) of NHWC tensors with flax's rules (the JAX
+    package's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``), computed in
+    f32 and rounded once to x.dtype. In train mode it normalises with the
+    batch's mean and its biased variance E[x^2] - E[x]^2 (clipped at 0),
+    and moves the running statistics by running = 0.9 running + 0.1 batch
+    with that same biased variance (torch's own rule would take the
+    unbiased one); in eval mode it normalises with the running statistics.
+    The buffers keep torch's names, so reference state_dicts load."""
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.9):
+        super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+        self.decay = momentum  # flax's momentum: the running statistics' weight
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 1, 2))
+            var = ((xf * xf).mean((0, 1, 2)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.decay * self.running_mean
+                                        + (1 - self.decay) * mean)
+                self.running_var.copy_(self.decay * self.running_var
+                                       + (1 - self.decay) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
+        return y.to(x.dtype)
+
+
+def make_norm(norm, channels, groups):
+    """GroupNorm(groups) or BatchNorm, eps 1e-5 (the JAX package's ``Norm``)."""
+    if norm == "group":
+        return GroupNorm(groups, channels, eps=1e-5)
+    if norm == "batch":
+        return BatchNorm(channels)
+    raise ValueError(f"norm {norm!r}: 'group' or 'batch'")
 
 
 class Dropout(nn.Module):
@@ -104,10 +174,10 @@ class Block(nn.Module):
     through the fused kernel with its extras, using weights packed once
     per weight version (a load_state_dict repacks)."""
 
-    def __init__(self, dim, dim_out, groups=32, dropout=0.0):
+    def __init__(self, dim, dim_out, groups=32, dropout=0.0, norm="group"):
         super().__init__()
         self.block = nn.Sequential(
-            GroupNorm(groups, dim, eps=1e-5), Swish(),
+            make_norm(norm, dim, groups), Swish(),
             Dropout(dropout) if dropout else nn.Identity(),
             Conv2d(dim, dim_out, 3))
         self._packed = None
@@ -158,21 +228,28 @@ class FeatureWiseAffine(nn.Module):
 
 class ResnetBlock(nn.Module):
     """block1 -> noise injection -> block2 -> + res_conv(x)
-    (sr3_modules/unet.py:94-111)."""
+    (sr3_modules/unet.py:94-111). The injection is SR3's ``noise_func``,
+    x + Linear(emb), or with ``discrete`` the DDPM variant's ``mlp``,
+    x + Linear(swish(emb)) (ddpm_modules/unet.py:82-95)."""
 
     def __init__(self, dim, dim_out, noise_level_emb_dim=None, dropout=0.0,
-                 norm_groups=32, fuse=False, fuse_skip="auto", fuse_stats=True):
+                 norm_groups=32, fuse=False, fuse_skip="auto", fuse_stats=True,
+                 norm="group", discrete=False):
         super().__init__()
         self.dim_out = dim_out
-        self.fuse = fuse
+        # the fused kernel is a GroupNorm kernel (the JAX package's gate)
+        self.fuse = fuse and norm == "group"
         # the skip rides the kernel as x2 ("auto": while dim_out under-fills
         # the JAX package's 128-lane tile), else the concat is materialised
         self.fuse_skip = dim_out < 128 if fuse_skip == "auto" else bool(fuse_skip)
         self.fuse_stats = fuse_stats
-        self.noise_func = (FeatureWiseAffine(noise_level_emb_dim, dim_out)
-                           if noise_level_emb_dim else None)
-        self.block1 = Block(dim, dim_out, groups=norm_groups)
-        self.block2 = Block(dim_out, dim_out, groups=norm_groups, dropout=dropout)
+        self.noise_func = self.mlp = None
+        if noise_level_emb_dim and discrete:
+            self.mlp = nn.Sequential(Swish(), nn.Linear(noise_level_emb_dim, dim_out))
+        elif noise_level_emb_dim:
+            self.noise_func = FeatureWiseAffine(noise_level_emb_dim, dim_out)
+        self.block1 = Block(dim, dim_out, groups=norm_groups, norm=norm)
+        self.block2 = Block(dim_out, dim_out, groups=norm_groups, dropout=dropout, norm=norm)
         self.res_conv = Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def forward(self, x, emb, x2=None, stats_in=None, emit_stats=False,
@@ -185,6 +262,8 @@ class ResnetBlock(nn.Module):
         h = self.block1(xin)
         if self.noise_func is not None:
             h = self.noise_func(h, emb)
+        elif self.mlp is not None:
+            h = h + self.mlp(emb)[:, None, None, :]
         return self.block2(h) + self.res_conv(xin), None
 
     def _fused(self, x, emb, x2, stats_in, emit_stats, x2_stats):
@@ -215,10 +294,10 @@ class SelfAttention(nn.Module):
     """Full-spatial attention over flattened H*W tokens, scale 1/sqrt(C)
     (sr3_modules/unet.py:114-143)."""
 
-    def __init__(self, in_channel, n_head=1, norm_groups=32):
+    def __init__(self, in_channel, n_head=1, norm_groups=32, norm="group"):
         super().__init__()
         self.n_head = n_head
-        self.norm = GroupNorm(norm_groups, in_channel, eps=1e-5)
+        self.norm = make_norm(norm, in_channel, norm_groups)
         self.qkv = Conv2d(in_channel, in_channel * 3, 1, bias=False)
         self.out = Conv2d(in_channel, in_channel, 1)
 
@@ -234,13 +313,13 @@ class SelfAttention(nn.Module):
 class ResnetBlocWithAttn(nn.Module):
     def __init__(self, dim, dim_out, noise_level_emb_dim=None, norm_groups=32,
                  dropout=0.0, with_attn=False, fuse=False, fuse_skip="auto",
-                 fuse_stats=True):
+                 fuse_stats=True, norm="group", discrete=False):
         super().__init__()
         self.with_attn = with_attn
         self.res_block = ResnetBlock(dim, dim_out, noise_level_emb_dim, dropout,
-                                     norm_groups, fuse, fuse_skip, fuse_stats)
+                                     norm_groups, fuse, fuse_skip, fuse_stats, norm, discrete)
         if with_attn:
-            self.attn = SelfAttention(dim_out, norm_groups=norm_groups)
+            self.attn = SelfAttention(dim_out, norm_groups=norm_groups, norm=norm)
 
     def forward(self, x, emb, x2=None, stats_in=None, x2_stats=None):
         """Returns (out, stats); attention changes the tensor, so it
@@ -274,27 +353,42 @@ class Upsample(nn.Module):
 
 
 class UNet(nn.Module):
-    """The SR3 UNet (sr3_modules/unet.py:162-263 topology): every down
+    """The SR3/DDPM UNet (sr3_modules/unet.py:162-263 topology): every down
     layer's output goes onto the skip stack; each up level consumes
-    res_blocks + 1 skips."""
+    res_blocks + 1 skips. ``time_embedding`` "continuous" (SR3, the noise
+    level, ``noise_level_mlp``) or "discrete" (DDPM, the integer t,
+    ``time_mlp``); ``norm`` "group" or "batch"."""
 
     def __init__(self, in_channel=6, out_channel=3, inner_channel=32,
                  norm_groups=32, channel_mults=(1, 2, 4, 8, 8), attn_res=(8,),
                  res_blocks=3, dropout=0.0, with_noise_level_emb=True,
-                 image_size=128, fuse_blocks=False, fuse_skip="auto", fuse_stats=True):
+                 image_size=128, fuse_blocks=False, fuse_skip="auto", fuse_stats=True,
+                 time_embedding="continuous", norm="group"):
         super().__init__()
+        if time_embedding not in ("continuous", "discrete"):
+            raise ValueError(f"time_embedding {time_embedding!r}: 'continuous' or 'discrete'")
         self.in_channel = in_channel
         self.fuse_blocks = fuse_blocks
+        self.time_embedding = time_embedding
+        self.norm = norm
+        discrete = time_embedding == "discrete"
         emb_dim = inner_channel if with_noise_level_emb else None
-        self.noise_level_mlp = (nn.Sequential(
-            PositionalEncoding(inner_channel),
+        mlp = (nn.Sequential(
+            TimeEmbedding(inner_channel) if discrete else PositionalEncoding(inner_channel),
             nn.Linear(inner_channel, inner_channel * 4), Swish(),
             nn.Linear(inner_channel * 4, inner_channel))
             if with_noise_level_emb else None)
+        # the reference's names: time_mlp in ddpm_modules, noise_level_mlp in sr3_modules
+        self.noise_level_mlp = self.time_mlp = None
+        if discrete:
+            self.time_mlp = mlp
+        else:
+            self.noise_level_mlp = mlp
 
         def resblock(dim, dim_out, with_attn):
             return ResnetBlocWithAttn(dim, dim_out, emb_dim, norm_groups, dropout,
-                                      with_attn, fuse_blocks, fuse_skip, fuse_stats)
+                                      with_attn, fuse_blocks, fuse_skip, fuse_stats, norm,
+                                      discrete)
 
         num_mults = len(channel_mults)
         pre = inner_channel
@@ -325,7 +419,7 @@ class UNet(nn.Module):
                 ups.append(Upsample(pre))
                 now_res *= 2
         self.ups = nn.ModuleList(ups)
-        self.final_conv = Block(pre, out_channel, groups=norm_groups)
+        self.final_conv = Block(pre, out_channel, groups=norm_groups, norm=norm)
 
     def set_dropout_generator(self, generator):
         """The generator every Dropout draws its masks from."""
@@ -334,9 +428,11 @@ class UNet(nn.Module):
                 m.generator = generator
 
     def forward(self, x, time):
-        """x: (B, H, W, in_channel) NHWC; time: (B, 1) noise level."""
+        """x: (B, H, W, in_channel) NHWC; time: the (B, 1) noise level, or
+        with the discrete embedding the (B,) integer timestep."""
         fused = self.fuse_blocks and not self.training
-        emb = self.noise_level_mlp(time) if self.noise_level_mlp is not None else None
+        mlp = self.time_mlp if self.time_mlp is not None else self.noise_level_mlp
+        emb = mlp(time) if mlp is not None else None
 
         h = self.downs[0](x)
         feats = [(h, None)]
@@ -355,6 +451,6 @@ class UNet(nn.Module):
                 h, h_stats = layer(h, emb, x2=x2, stats_in=h_stats, x2_stats=x2_stats)
             else:
                 h, h_stats = layer(h, fused=fused), None
-        if fused:
+        if fused and self.norm == "group":
             return self.final_conv.fused(h, stats_in=h_stats)
         return self.final_conv(h)

@@ -1,16 +1,22 @@
 """DDPM lifecycle wrapper (reference model/model.py:12-202).
 
-Port of ``hsi_dmgasr_tpu/train/ddpm_model.py`` for the SR3 model:
+Port of ``hsi_dmgasr_tpu/train/ddpm_model.py`` for both models of
+``which_model_G`` ('sr3', and 'ddpm': discrete t and BatchNorm):
 
   * the UNet from the config, re-initialised orthogonally as the JAX
     package does (reference model/networks.py:110-112), the TRAIN and VAL
     diffusions side by side;
-  * ``train_step``: one Adam update on a latent batch {'HR', 'SR'} (NHWC)
-    through the unfused autograd UNet with dropout drawn from the step's
-    generator, the lr schedule stepped, then the EMA updated (``state.py``);
+  * ``train_step``: one Adam update on a latent batch {'HR', 'SR'} (NHWC;
+    'SR' None for an unconditional model) through the unfused autograd
+    UNet with dropout drawn from the step's generator (BatchNorm running
+    statistics move, once a step), the lr schedule stepped, then the EMA
+    updated (``state.py``);
   * ``eval_unet`` / ``eval_params``: the EMA weights when
-    ``use_ema_for_eval`` is set; ``super_resolution`` samples with them,
-    honouring ``model.diffusion.t_start``;
+    ``use_ema_for_eval`` is set (with the live running statistics);
+    ``super_resolution`` and ``sample`` (an unconditional model) sample
+    with them, through the sampler of ``model.diffusion.sampler``
+    ("ancestral", honouring ``t_start``, or "ddim" with ``ddim_steps``),
+    or with ``continous`` return the reference's reverse-process stack;
   * checkpoints in the port's own format (a directory ``I{it}_E{ep}``
     holding one ``state.pt``: weights, Adam, the schedule, the EMA, the
     step) and the JAX package's ``.npz`` export of the eval weights, so a
@@ -99,19 +105,30 @@ class DDPMModel:
         """The ``state.EMA`` of the weights."""
         return self._start_ema()
 
-    def compute_grads(self, batch, generator=None, gamma=None, noise=None):
+    @property
+    def discrete(self):
+        """The 'ddpm' model: the UNet is fed the integer timestep."""
+        return self.unet.time_embedding == "discrete"
+
+    def compute_grads(self, batch, generator=None, gamma=None, noise=None, t=None):
         """The loss of one batch and its gradients in ``.grad``, the UNet
-        in train mode with dropout drawn from ``generator``. ``gamma`` and
-        ``noise`` replace the loss's draws."""
+        in train mode with dropout drawn from ``generator`` (BatchNorm
+        running statistics move). ``gamma`` (the 'sr3' model) or ``t`` (the
+        'ddpm' model), and ``noise``, replace the loss's draws."""
+        if (gamma if self.discrete else t) is not None:
+            raise ValueError("gamma replays the 'sr3' loss's draw, t the 'ddpm' loss's")
+        draws = {"t": t} if self.discrete else {"gamma": gamma}
         g = self.generator if generator is None else generator
         hr = torch.as_tensor(batch["HR"], dtype=torch.float32, device=self.device)
-        sr = torch.as_tensor(batch["SR"], dtype=torch.float32, device=self.device)
+        sr = batch.get("SR")
+        if sr is not None:
+            sr = torch.as_tensor(sr, dtype=torch.float32, device=self.device)
         self.unet.train()
         self.unet.set_dropout_generator(g)
         try:
             self.optimizer.zero_grad(set_to_none=True)
             loss = self.train_diffusion.p_losses(self.unet, hr, sr, generator=g,
-                                                 gamma=gamma, noise=noise)
+                                                 noise=noise, **draws)
             loss.backward()
         finally:
             self.unet.set_dropout_generator(None)
@@ -127,10 +144,10 @@ class DDPMModel:
             ema.update(self.unet)
         self.step += 1
 
-    def train_step(self, batch, generator=None, gamma=None, noise=None):
+    def train_step(self, batch, generator=None, gamma=None, noise=None, t=None):
         """One optimizer step on a latent batch {'HR','SR'} (NHWC). Returns
         the loss as a tensor on the device (no host sync)."""
-        loss = self.compute_grads(batch, generator, gamma, noise)
+        loss = self.compute_grads(batch, generator, gamma, noise, t)
         self.apply_gradients()
         return loss
 
@@ -152,19 +169,82 @@ class DDPMModel:
     def _denoise(self, x, noise_level):
         return self.eval_unet(x, noise_level)
 
-    def super_resolution(self, cond, generator=None, x_init=None, noise_seq=None):
-        """Reverse-diffuse conditioned on the upsampled LR latent (NHWC).
-        ``x_init``/``noise_seq`` replay given noise instead of drawing."""
+    def _sampler(self, unconditional=False):
+        """(sampler, ddim_steps, t_start) of ``model.diffusion``, with the
+        JAX package's refusal of ``t_start`` outside conditional ancestral
+        sampling. ``latent_chunk`` is not read here."""
         diff_opt = self.opt["model"]["diffusion"] or {}
         sampler = diff_opt.get("sampler") or "ancestral"
-        if sampler != "ancestral":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
+        if sampler not in ("ancestral", "ddim"):
+            raise ValueError(f"model.diffusion.sampler {sampler!r}: 'ancestral' or 'ddim'")
+        t_start = diff_opt.get("t_start")
+        if t_start is not None and (unconditional or sampler == "ddim"):
+            raise ValueError("t_start requires conditional ancestral sampling")
+        return sampler, diff_opt.get("ddim_steps"), t_start
+
+    @torch.inference_mode()
+    def _run_chain(self, generator, cond=None, shape=None, x_init=None, noise_seq=None,
+                   continous=False):
+        """One chain of the configured sampler, from ``cond`` or, without
+        it, from pure noise of ``shape``. ``continous`` runs the ancestral
+        chain whatever the sampler (as the JAX package does), its x_init
+        drawn first from the chain's own generator, and returns the
+        reverse-process stack."""
+        sampler, ddim_steps, t_start = self._sampler(unconditional=cond is None)
+        g = generator if generator is not None else self.generator
+        d = self.val_diffusion
+        if continous:
+            if x_init is None:
+                x_init = (d.init_from_cond(cond, int(t_start), g) if t_start is not None else
+                          torch.randn(tuple(shape) if cond is None else cond.shape, generator=g,
+                                      dtype=torch.float32, device=self.device))
+            x_init = torch.as_tensor(x_init, dtype=torch.float32, device=self.device)
+            _, states = d.sample_loop(self._denoise, cond=cond, x_init=x_init,
+                                      noise_seq=noise_seq, t_start=t_start, generator=g,
+                                      return_intermediates=True)
+            return self._process_stack(x_init if cond is None else cond, states)
+        if sampler == "ddim":
+            return d.ddim_sample_loop(self._denoise, shape=shape, cond=cond, steps=ddim_steps,
+                                      x_init=x_init, noise_seq=noise_seq, generator=g)
+        return d.sample_loop(self._denoise, cond=cond, shape=shape, x_init=x_init,
+                             noise_seq=noise_seq, t_start=t_start, generator=g)
+
+    @staticmethod
+    def _process_stack(start, states):
+        """The reference's continous stack (diffusion.py:177-201): the start
+        image (the conditioning when conditional, the initial noise when
+        not), then the state after every ``1 | (T // 10)``-strided step
+        (counted down from T - 1), concatenated along the batch axis."""
+        n = states.shape[0]
+        stride = 1 | (n // 10)
+        keep = [i for i, t in enumerate(range(n - 1, -1, -1)) if t % stride == 0]
+        return torch.cat([start.float()] + [states[i] for i in keep], 0)
+
+    def super_resolution(self, cond, generator=None, x_init=None, noise_seq=None,
+                         continous=False):
+        """Reverse-diffuse conditioned on the upsampled LR latent (NHWC)
+        (model/model.py:61-70 test()). ``x_init``/``noise_seq`` replay given
+        noise instead of drawing (``noise_seq`` holds one noise per step of
+        the configured chain). ``continous=True`` returns the reference's
+        reverse-process stack instead of the final state."""
         with torch.inference_mode():
             cond = torch.as_tensor(cond, dtype=torch.float32, device=self.device)
-            return self.val_diffusion.sample_loop(
-                self._denoise, cond=cond, x_init=x_init, noise_seq=noise_seq,
-                t_start=diff_opt.get("t_start"),
-                generator=generator if generator is not None else self.generator)
+        return self._run_chain(generator, cond=cond, x_init=x_init, noise_seq=noise_seq,
+                               continous=continous)
+
+    def sample(self, batch_size=1, generator=None, continous=False, x_init=None, noise_seq=None):
+        """Unconditional generation (model/model.py:72-79) of ``batch_size``
+        images of image_size^2 x channels. ``continous=True`` returns the
+        process stack seeded from the initial noise (diffusion.py:182-188)."""
+        if self.opt["model"]["diffusion"].get("conditional", True):
+            raise ValueError(
+                "sample() needs an unconditional config (model.diffusion.conditional=false, "
+                "unet.in_channel == diffusion.channels); this config is conditional: use "
+                "super_resolution() instead")
+        diff_opt = self.opt["model"]["diffusion"]
+        size, channels = diff_opt["image_size"], diff_opt["channels"]
+        return self._run_chain(generator, shape=(batch_size, size, size, channels),
+                               x_init=x_init, noise_seq=noise_seq, continous=continous)
 
     # ------------------------------------------------------- checkpoints
 
@@ -217,10 +297,12 @@ class DDPMModel:
         self.begin_epoch = 0
 
     def export_params_npz(self, path, dtype=np.float16):
-        """The EVAL weights as the JAX package's ``export_params_npz`` writes
-        them: flattened flax paths ``params/...``, float16 by default."""
-        arrays = {"params/" + "/".join(p): v.astype(dtype)
-                  for p, v in export_jax_params(self.eval_unet).items()}
+        """The EVAL weights (and the BatchNorm running statistics) as the
+        JAX package's ``export_params_npz`` writes them: flattened flax paths
+        ``params/...`` (``batch_stats/...``), float16 by default."""
+        arrays = {f"{c}/" + "/".join(p): v.astype(dtype)
+                  for c in ("params", "batch_stats")
+                  for p, v in export_jax_params(self.eval_unet, c).items()}
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         np.savez_compressed(path, **arrays)
         return path

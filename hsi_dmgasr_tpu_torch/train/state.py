@@ -71,7 +71,10 @@ class EMA:
     """Exponential moving average of a module's parameters, held in a copy
     of the module (so the copy can run, fused kernels included). The
     update is in place: every parameter's ``_version`` moves, so weights
-    packed from the copy are repacked."""
+    packed from the copy are repacked. Buffers (BatchNorm's running
+    statistics) are not averaged: the copy takes the module's own at every
+    update, as the JAX package samples its EMA weights with the live
+    ``batch_stats``."""
 
     def __init__(self, module, decay):
         self.decay = float(decay)
@@ -84,6 +87,8 @@ class EMA:
         torch._foreach_mul_(ema, self.decay)
         torch._foreach_add_(ema, [p.detach() for p in module.parameters()],
                             alpha=1.0 - self.decay)
+        for mine, live in zip(self.module.buffers(), module.buffers()):
+            mine.copy_(live)
 
     def state_dict(self):
         return self.module.state_dict()
