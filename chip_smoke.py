@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives ten main paths. Four are x4 DMGASR on a
+checkout. It drives eleven main paths. Five are x4 DMGASR on a
 512x512x102 Pavia-geometry cube at full width (UNet inner 64, mults
 1,2,4,8,8, res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16,
 n_ovls 4, n_feats 64, G=9; seeded random weights):
@@ -29,8 +29,15 @@ n_ovls 4, n_feats 64, G=9; seeded random weights):
     two rows, the t_start=4 cube and the full T=20 chain, launch 220 and
     1100 fused Blocks and no flash; it prints the bench's JSON line (both
     cube times, the UNet step's roofline share).
+  * pavia_x4_spatial: configs/pavia_x4.json through super_resolve_spatial
+    on a ('data', 'space') = (1, 2) mesh: two ranks spawned on the one
+    card (gloo, a file:// store), each holding 256 of the 512 latent rows,
+    replaying the pavia_x4 cube's draws. Each rank launches 1100 fused
+    Blocks (with halo rows and the whole image's moments) and 100 flash
+    attentions (on the gathered 128^2 level) per cube. Two ranks share one
+    card: its times are not multi-card times.
 
-The fifth and sixth are the two training stages at the same full
+The sixth and seventh are the two training stages at the same full
 width, chained as a user chains them:
 
   * train_gae: stage-1 GAE training through the port's CLI (cli.ae, at
@@ -54,7 +61,7 @@ width, chained as a user chains them:
 Both train on the same 8 training scenes of 256^2 and validate on the
 same 3 val scenes of 128^2, written from a seed under build/scenes.
 
-The seventh is unconditional generation, the discrete-t BatchNorm DDPM
+The eighth is unconditional generation, the discrete-t BatchNorm DDPM
 variant:
 
   * sample_ddpm_16: configs/sample_ddpm_16.json at its full width (inner
@@ -66,7 +73,7 @@ variant:
     UNet forwards take at most 30 s, else DDIM over 100 steps. Its
     Blocks are BatchNorm, so no kernel of the port runs.
 
-The eighth and ninth are the SR3 face configs through the port's CLIs,
+The ninth and tenth are the SR3 face configs through the port's CLIs,
 on 4 seeded 128^2 face-like PNGs (and their 16 -> 128 SR images) that
 the port's own PNG writer puts under build/faces:
 
@@ -84,7 +91,7 @@ the port's own PNG writer puts under build/faces:
     schedules' 2000 steps to 100 (linear). BatchNorm Blocks: no kernel of
     the port runs.
 
-The tenth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
+The eleventh is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
 
   * int8_probe: chains of 4000 dependent dots x @ w with a requantize
     step, at M = 4096 and (K, N) = (512, 512), (576, 256), (192, 256),
@@ -104,7 +111,15 @@ In order:
     launch counts, times it (median of 3) and reads the peak memory; holds
     one full-width UNet forward with the kernels against the same forward
     with their plain versions (in bf16 for the bench; the f32 paths also
-    report both against the unfused f32 forward). Then train_gae: counts
+    report both against the unfused f32 forward). Then pavia_x4_spatial:
+    the single-device pavia_x4 chain twice from its draws (the reference,
+    and the spread of two such chains), then the two ranks, each with its
+    counts to 0, one cube recorded and counted (1100 fused, 100 flash per
+    rank), checked, and timed (median of 3); the ranks' cubes equal and the
+    sharded latent chain within TOL_UNET of the single-device one (its
+    distance against the JAX package's 1e-4 printed); peak memory per rank
+    and bytes gathered per cube (halos, moments, attention, the output).
+    Then train_gae: counts
     to 0, cli.ae's steps, no launch counted; every step's loss finite, the
     saved directory loaded back into a fresh GAE bit for bit, one batch-1
     step on the card against the same step on the CPU (HLoss in f32, and
@@ -227,7 +242,25 @@ TRAIN_SCENES, TRAIN_SCENE_HW, VAL_HW = 8, 256, 128
 # on the einsum route); INFER_REPLAY steps replayed kernels against plain
 INFER, INFER_IMAGES, INFER_T, INFER_REPLAY = "infer_sr3_16_128", 2, 200, 4
 INFER_PER_IMAGE = {FUSED: 55 * INFER_T, FLASH: 0}
-UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN, INFER)
+# H-sharded inference (super_resolve_spatial) under configs/pavia_x4.json on
+# a ('data', 'space') = (1, 2) mesh: two ranks, each holding 256 of the 512
+# latent rows (16 of 32 at the deepest level), spawned on the one card and
+# joined over gloo (NCCL refuses two ranks on one device). Each replays the
+# pavia_x4 cube's draws (its seed 2) and launches 55 fused Blocks per UNet
+# forward on its shard, with halo rows, and 5 flash attentions on the
+# gathered 128^2 level, x T=20. Two ranks share one card, so its times are
+# not multi-card times. The JAX package holds its sharded chain to 1e-4 of
+# its single-device chain (printed here, not gated: the kernel's per-row
+# stats take atomicAdds in no fixed order, so two single-device chains
+# differ too); the gate is TOL_UNET.
+SPATIAL, SPATIAL_MESH, SPATIAL_SEED = "pavia_x4_spatial", (1, 2), 2
+SPATIAL_PER_RANK = {FUSED: 1100, FLASH: 100}
+SPATIAL_JAX_TOL = 1e-4
+# the ranks gather the same latent bit for bit and each decodes it: their
+# cubes (in [0, 1]) may differ in the last bits of cuDNN's convolutions
+SPATIAL_RANK_TOL = 1e-6
+TWO_RANKS = "two ranks share one card (gloo), not a multi-card time"
+UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN, INFER, SPATIAL)
 # unconditional generation under configs/sample_ddpm_16.json at its full
 # width (the discrete-t BatchNorm UNet, unfused: no kernel of the port): one
 # train step of SAMPLE_BATCH HR images of 128^2 x 3 against the CPU's, then
@@ -358,6 +391,8 @@ def recording(fused_calls, flash_calls):
                kw.get("stats_in") is not None, kw.get("stats_in2") is not None,
                bool(kw.get("emit_stats")), kw.get("res_kernel") is not None,
                dtype_name(x.dtype))
+        if kw.get("halo") is not None:  # an H-shard's launch: which shard
+            sig += (shard_position(kw["mesh"]),)
         fused_calls[sig] = fused_calls.get(sig, 0) + 1
         return real_fused(x, gn_scale, gn_bias, kernel, bias, **kw)
 
@@ -443,21 +478,38 @@ def dtype_name(dtype):
     return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
 
 
+def shard_position(mesh):
+    """'first', 'middle' or 'last' H-shard of the mesh's 'space' axis."""
+    if mesh.space_idx == 0:
+        return "first"
+    return "last" if mesh.space_idx == mesh.n_space - 1 else "middle"
+
+
+# a shard position -> (n_space, space_idx) of a one-process mesh with its edge flags
+SHARD_AT = {"first": (2, 0), "middle": (3, 1), "last": (2, 1)}
+
+
 def describe(sig):
-    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig
+    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig[:10]
     extras = [n for n, on in (("tb", tb), ("res", res), ("stats_in", sin),
                               ("stats_in2", sin2), ("stats", emit), ("proj", proj)) if on]
     src = f"{c}+{c2}" if c2 else f"{c}"
-    return f"{dt} B={b} {h}x{w} {src}->{cout} {'+'.join(extras) or 'none'}"
+    halo = f" halo@{sig[10]}" if len(sig) > 10 else ""
+    return f"{dt} B={b} {h}x{w} {src}->{cout} {'+'.join(extras) or 'none'}{halo}"
 
 
 def make_inputs(sig, device, seed):
     """Inputs of one launch signature. A bf16 signature gets every tensor in
     bf16, as the bf16 UNet hands them over (its weights, the noise Linear's
-    time bias, the residual and the skip); the moments stay f32."""
+    time bias, the residual and the skip); the moments stay f32. An H-shard
+    signature also gets raw halo rows and a one-process mesh whose edge
+    flags are the shard's (its moments are the shard's own: the kernel and
+    the plain version see the same)."""
     import torch
 
-    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig
+    from hsi_dmgasr_tpu_torch.parallel.mesh import Mesh
+
+    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig[:10]
     ct = c + c2
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -491,6 +543,12 @@ def make_inputs(sig, device, seed):
         for name, src in (("stats_in", args[0]), ("stats_in2", kw.get("x2"))):
             if name in kw:
                 kw[name] = moments(src.float())
+    if len(sig) > 10:
+        n_space, idx = SHARD_AT[sig[10]]
+        kw["mesh"] = Mesh(1, n_space, 0, idx, torch.device(device))
+        for name, src in (("halo", args[0]), ("halo2", kw.get("x2"))):
+            if src is not None:
+                kw[name] = tuple(randn(b, 1, w, src.shape[-1]).to(src.dtype) for _ in range(2))
     return args, kw
 
 
@@ -505,9 +563,10 @@ def bound(sig):
     activations in the signature's dtype (4 or 2 bytes), bf16 weights. An
     f32 input's conv is two bf16 products (its activation's hi and lo
     parts), the time of one at the TF32 rate."""
-    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig
+    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig[:10]
     ct, pix = c + c2, b * h * w
-    nbytes = (2 if dt == "bf16" else 4) * pix * (ct + cout * (1 + res + proj))
+    pix_in = pix + (2 * b * w if len(sig) > 10 else 0)  # an H-shard also reads two halo rows
+    nbytes = (2 if dt == "bf16" else 4) * (pix_in * ct + pix * cout * (1 + res + proj))
     nbytes += 2 * (9 + proj) * ct * cout + 4 * (b * h * 2 * (c * sin + c2 * sin2 + cout * emit))
     return pick_bound(nbytes, (2 if dt == "bf16" else 4) * pix * cout * ct * (9 + proj))
 
@@ -587,7 +646,8 @@ def check_signature(sig, seed):
     library_ms = cuda_ms(lambda: F.conv2d(a, w, padding=1), reps=5)
     del a, x_all, scale, shift
     b_ms, b_by = bound(sig)
-    return {"signature": describe(sig), "level": f"{sig[0][1]}x{sig[0][2]}",
+    level = f"{sig[0][1]}x{sig[0][2]}" + (" shard" if len(sig) > 10 else "")
+    return {"signature": describe(sig), "level": level,
             "errors": errs, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "kernel_ms": kernel_ms, "bound_frac": b_ms / ms, "vs_library": ms / library_ms,
@@ -970,6 +1030,148 @@ def check_chain(name, pipe, cube):
     if not within(got, want, TOL_UNET):
         raise AssertionError(f"[{name}] chain with the kernels vs plain: {err}")
     return err
+
+
+def spatial_rank(rank, device, weights, seeds):
+    """One rank of pavia_x4_spatial: the pavia_x4 pipeline on the weights
+    the parent saved, the launch counts set to 0, one cube through
+    super_resolve_spatial replaying the pavia_x4 cube's draws while its
+    launch signatures are recorded (and the gathered latent caught at the
+    decode), its exact counts, then one more cube for each timing seed.
+    Returns the counts, signatures, bytes gathered, peak memory, times,
+    latent and cube."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.device import use_f32_policy
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.parallel import dmgasr_mesh
+
+    use_f32_policy()
+    mesh = dmgasr_mesh(*SPATIAL_MESH)
+    torch.cuda.set_device(mesh.device)
+    config, diffusion, _ = PATHS["pavia_x4"]
+    pipe = build_pipeline(config, diffusion)
+    state = torch.load(weights, map_location=mesh.device)
+    pipe.gae.load_state_dict(state["gae"])
+    pipe.ddpm.eval_unet.load_state_dict(state["unet"])
+    cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+
+    def sharded_cube(seed):
+        return pipe.super_resolve_spatial(
+            cube, mesh, generator=torch.Generator(device="cuda").manual_seed(seed),
+            replay_noise=True)
+
+    fused_calls, flash_calls = {}, {}
+    fc.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    bd.LAUNCHES = 0
+    mesh.gathered.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with recording(fused_calls, flash_calls), \
+            mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
+        out = sharded_cube(SPATIAL_SEED)
+    torch.cuda.synchronize()
+    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
+    gathered = dict(mesh.gathered)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != SPATIAL_PER_RANK or bd.LAUNCHES:
+        raise AssertionError(f"[{SPATIAL}] rank {rank}: {launches}, {bd.LAUNCHES} blocked-dot "
+                             f"launches per cube, expected {SPATIAL_PER_RANK} and none")
+    check_cube(SPATIAL, out, CUBE)
+    times = []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded_cube(seed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"launches": launches, "fused_calls": fused_calls, "flash_calls": flash_calls,
+            "gathered_bytes": gathered, "peak_memory_gib": peak_gib, "cube_times": times,
+            "latent": decode.call_args[0][0].cpu(), "cube": out.cpu()}
+
+
+def run_spatial():
+    """pavia_x4_spatial, in the parent: the pavia_x4 pipeline's single-device
+    cube twice from the same draws (the latent caught at the decode: the
+    reference, and the spread two single-device chains show), its weights
+    saved for the ranks; then the two ranks (multihost.launch, a file://
+    store), each checked for its counts and cube; the ranks' cubes equal;
+    the sharded latent against the single-device one within TOL_UNET.
+    Returns its report and its ranks' launch signatures, summed."""
+    import tempfile
+
+    import torch
+
+    from hsi_dmgasr_tpu_torch.parallel import multihost
+
+    config, diffusion, _ = PATHS["pavia_x4"]
+    pipe = build_pipeline(config, diffusion)
+    cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    single = []
+    for _ in range(2):
+        with mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
+            pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(
+                SPATIAL_SEED))
+        single.append(decode.call_args[0][0].cpu())
+    spread = divergence(single[1], single[0])
+    with torch.inference_mode():
+        z = single[0].cuda()
+        decode_repeat = (pipe.decode(z) - pipe.decode(z)).abs().max().item()
+        del z
+    work = os.path.join(ROOT, "build", "spatial")
+    os.makedirs(work, exist_ok=True)
+    weights = os.path.join(work, "weights.pt")
+    torch.save({"gae": pipe.gae.state_dict(), "unet": pipe.ddpm.eval_unet.state_dict()},
+               weights)
+    del pipe, cube
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="store-", dir=work)
+    ranks = multihost.launch(spatial_rank, SPATIAL_MESH[0] * SPATIAL_MESH[1],
+                             f"file://{store}/rendezvous", args=(weights, (3, 4, 5)))
+    shutil.rmtree(store, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    latents_equal = all(torch.equal(r["latent"], ranks[0]["latent"]) for r in ranks)
+    cube_diff = max((r["cube"] - ranks[0]["cube"]).abs().max().item() for r in ranks)
+    log(f"[{SPATIAL}] the ranks' gathered latents equal: {latents_equal}; their decoded cubes "
+        f"differ by {cube_diff:.3e} at most; one process decoding the same latent twice: "
+        f"{decode_repeat:.3e}")
+    if not latents_equal or cube_diff > SPATIAL_RANK_TOL:
+        raise AssertionError(f"[{SPATIAL}] the ranks' outputs differ: latents equal "
+                             f"{latents_equal}, cubes {cube_diff:.3e} apart")
+    err = divergence(ranks[0]["latent"], single[0])
+    meets_jax = within(ranks[0]["latent"], single[0], SPATIAL_JAX_TOL)
+    log(f"[{SPATIAL}] mesh {SPATIAL_MESH} ({TWO_RANKS}): sharded latent chain vs single-device "
+        f"{err}; within the JAX package's {SPATIAL_JAX_TOL} (not gated): {meets_jax}; two "
+        f"single-device chains from the same draws differ by {spread}")
+    if not within(ranks[0]["latent"], single[0], TOL_UNET):
+        raise AssertionError(f"[{SPATIAL}] sharded chain vs single-device: {err}")
+    fused_calls, flash_calls = {}, {}
+    for r in ranks:
+        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"])):
+            for sig, n in calls.items():
+                mine[sig] = mine.get(sig, 0) + n
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH)}
+    times = [r["cube_times"] for r in ranks]
+    report = {"mesh": SPATIAL_MESH, "note": TWO_RANKS, "launches": launches,
+              "launches_per_rank": [r["launches"] for r in ranks],
+              "cube_seconds": statistics.median(times[0]), "cube_times": times,
+              "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
+              "gathered_bytes_per_cube": [r["gathered_bytes"] for r in ranks],
+              "sharded_vs_single": err, "within_jax_tol": meets_jax,
+              "single_device_spread": spread, "ranks_seconds": secs,
+              "ranks_cube_max_diff": cube_diff, "decode_repeat_max_diff": decode_repeat}
+    log(f"[{SPATIAL}] ({TWO_RANKS}) cube seconds (median of 3, rank 0): "
+        f"{report['cube_seconds']:.4f} {times}; peak memory per rank "
+        f"{[round(g, 2) for g in report['peak_memory_gib']]} GiB; bytes gathered per cube by "
+        f"rank {report['gathered_bytes_per_cube']}; launches per rank "
+        f"{report['launches_per_rank']}; the ranks took {secs:.1f} s in all")
+    return report, fused_calls, flash_calls
 
 
 def log_profile(name, prof):
@@ -2207,6 +2409,7 @@ def main():
         f"{R3}'s {runs[R3][0]['cube_seconds']:.4f} (4 UNet forwards each)")
     del cube
     torch.cuda.empty_cache()
+    runs[SPATIAL] = run_spatial()
     runs.update(run_bench(args.profile))
     dirs = make_train_data(os.path.join(ROOT, "build", "scenes"))
     report["paths"][TRAIN_GAE], gae_ckpt = run_train_gae(args.profile, dirs)

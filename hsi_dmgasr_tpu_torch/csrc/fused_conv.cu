@@ -18,11 +18,18 @@
 // residual to bf16, as the TPU kernel does, moved a full-width f32 UNet
 // forward by 1 % of its largest output over its 55 Blocks, and two
 // correct implementations apart by as much.) Out-of-image taps contribute zero
-// in ACTIVATED space. Optional outputs: per-row [sum, sumsq] over W of the
-// f32 result (stats, (B, H, 2, Cout)), and the 1x1 projection of the RAW
-// centre tap of [x, x2] (split the same way where f32) plus its bias
-// (res_out). GroupNorm scale/shift per (b, c) are folded on the host from
-// the moments.
+// in ACTIVATED space. Under an H-shard (spatially sharded inference) x is a
+// rank's rows, and the taps at rows -1 and H read the neighbour ranks'
+// boundary rows (halo_prev / halo_next, (B, 1, W, C), and halo_prev2 /
+// halo_next2 for x2), raw, unless the rank's edge flag marks a true image
+// edge there: the halo rows go through the same activation as the interior
+// rows (the TPU kernel takes them pre-activated and rounded to bf16 from
+// the host). The scale and shift are then the whole image's. Optional
+// outputs: per-row [sum, sumsq] over W of the f32 result (stats,
+// (B, H, 2, Cout)), and the 1x1 projection of the RAW centre tap of
+// [x, x2] (split the same way where f32) plus its bias (res_out).
+// GroupNorm scale/shift per (b, c) are folded on the host from the
+// moments.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at the
 // 512^2 levels (C_total 64..192, Cout 64) bytes: the f32 input, output
@@ -117,6 +124,11 @@ struct Params {
   void* out;                // (B, H, W, Cout)
   float* stats;             // (B, H, 2, Cout) zeroed, or null
   void* res_out;            // (B, H, W, Cout) or null
+  const void* hp;           // (B, 1, W, C): row -1 (the previous rank's last) or null
+  const void* hn;           // (B, 1, W, C): row H (the next rank's first) or null
+  const void* hp2;          // (B, 1, W, C2): the same rows of x2, or null
+  const void* hn2;
+  int has_prev, has_next;   // rows -1 / H come from hp / hn (not a true edge)
   int B, H, W, C, C2, Cout;
   int R, BW, nWseg, npix_stage, part;
 };
@@ -369,6 +381,12 @@ gn_swish_conv3x3_kernel(const Params p) {
   };
   zero_acc();
 
+  // window position (hh, ww) holds an input pixel: inside the image, or on
+  // a halo row where the neighbour rank has one
+  auto in_window = [&](int hh, int ww) {
+    return ww >= 0 && ww < W &&
+           ((hh >= 0 && hh < H) || (hh == -1 && p.has_prev) || (hh == H && p.has_next));
+  };
   const float inv_sw = 1.0f / SW;  // exact row of pix < 2^16 below
   auto unit_pos = [&](int u, int& pix, int& q, int& hh, int& ww) {
     pix = u / UPP;
@@ -391,6 +409,8 @@ gn_swish_conv3x3_kernel(const Params p) {
     }
     if (c1 < J) {
       const T* src = static_cast<const T*>(c1 < J1 ? p.x : p.x2);
+      const T* src_prev = static_cast<const T*>(c1 < J1 ? p.hp : p.hp2);
+      const T* src_next = static_cast<const T*>(c1 < J1 ? p.hn : p.hn2);
       const int Cs = c1 < J1 ? p.C : p.C2;
       const int cs = (c1 < J1 ? c1 : c1 - J1) * KC;
       for (int i = tid; i < part; i += NTHREADS) {
@@ -398,8 +418,13 @@ gn_swish_conv3x3_kernel(const Params p) {
         if (u >= n_units) break;
         int pix, q, hh, ww;
         unit_pos(u, pix, q, hh, ww);
-        const bool inimg = hh >= 0 && hh < H && ww >= 0 && ww < W;
-        const T* g = inimg ? src + ((size_t)(b * H + hh) * W + ww) * Cs + cs + q : src;
+        const bool inimg = in_window(hh, ww);
+        const T* g = src;
+        if (inimg) {
+          const bool halo = hh < 0 || hh >= H;
+          const size_t at = halo ? (size_t)b * W + ww : (size_t)(b * H + hh) * W + ww;
+          g = (halo ? (hh < 0 ? src_prev : src_next) : src) + at * Cs + cs + q;
+        }
         cp_async16(slot + BN * ROWB + i * 16, g, inimg);
       }
     }
@@ -417,7 +442,7 @@ gn_swish_conv3x3_kernel(const Params p) {
       if (u >= n_units) break;
       int pix, q, hh, ww;
       unit_pos(u, pix, q, hh, ww);
-      const bool inimg = hh >= 0 && hh < H && ww >= 0 && ww < W;
+      const bool inimg = in_window(hh, ww);
       activate(raw[i], inimg, sc + q, sh + q, abuf + pix * KP + q, 2 * SP * KP, T());
     }
   };
@@ -694,14 +719,18 @@ int dispatch(const Params& p, cudaStream_t s) {
 }  // namespace
 
 // Plain C entry, bound with ctypes. Pointers may be null for absent
-// inputs (x2, rpack, tb, residual, rbias, stats, res_out). Returns the
-// cudaError_t of the launch (0 on success).
+// inputs (x2, rpack, tb, residual, rbias, stats, res_out, the halo rows:
+// without them rows -1 and H are out of the image). is_first / is_last mark
+// a true image edge above / below this shard, where the halo row is not
+// read. Returns the cudaError_t of the launch (0 on success).
 extern "C" int hsi_gn_swish_conv3x3(
     const void* x, const void* x2, const float* scale, const float* shift,
     const void* wpack, const void* rpack, const float* bias, const float* tb,
     const void* residual, const float* rbias, void* out, float* stats,
     void* res_out, int B, int H, int W, int C, int C2, int Cout,
-    int is_bf16, void* stream) {
+    int is_bf16, const void* halo_prev, const void* halo_next,
+    const void* halo_prev2, const void* halo_next2, int is_first, int is_last,
+    void* stream) {
   Params p;
   p.x = x;
   p.x2 = x2;
@@ -716,6 +745,12 @@ extern "C" int hsi_gn_swish_conv3x3(
   p.out = out;
   p.stats = stats;
   p.res_out = res_out;
+  p.hp = halo_prev;
+  p.hn = halo_next;
+  p.hp2 = halo_prev2;
+  p.hn2 = halo_next2;
+  p.has_prev = halo_prev != nullptr && !is_first;
+  p.has_next = halo_next != nullptr && !is_last;
   p.B = B;
   p.H = H;
   p.W = W;

@@ -21,6 +21,17 @@ Host side (plain torch, XLA in JAX): the GroupNorm moments come from
 from one reduction over x, and fold into per-(b, c) scale and shift with
 var = E[x^2] - mean^2 clamped at 0, exactly as ``_scale_shift`` does.
 
+Under an H-shard (``mesh``, the JAX package's ``axis_name``) x is this
+rank's rows: the per-row moments of every rank are gathered over 'space'
+before the sum, so the moments are the whole image's (bitwise those of
+one device, on the CPU), and ``halo`` (``halo2`` for x2), the neighbour
+ranks' raw boundary rows from ``parallel/spatial.py:exchange_halo``,
+take the place of the zero padding at this shard's first and last row,
+activated with the same scale and shift as the interior rows, and zeroed
+at the true image edges. The kernel reads them raw and activates them in
+shared memory like every other row (the JAX package activates them on
+the host and rounds them to bf16).
+
 Device side: ``csrc/fused_conv.cu`` (CUDA C++ for sm_90a, bound with
 ctypes). ``gn_swish_conv3x3`` launches it for CUDA tensors and raises
 on what it does not take; for CPU tensors it runs
@@ -36,6 +47,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import edge_flags, edge_mask, gather_rows
 from . import build
 
 KC = 32   # channels per K chunk of the CUDA kernel
@@ -52,8 +64,17 @@ def _row_moments(x):
     return torch.stack([xf.sum(2), (xf * xf).sum(2)], 2)
 
 
-def _reduce_row_stats(st):
-    """(B, H, 2, C) per-row partials -> per-channel (sum, sumsq)."""
+def _reduce_row_stats(st, mesh=None):
+    """(B, H_loc, 2, C) per-row partials -> per-channel (sum, sumsq).
+
+    Under an H-shard the partials are gathered over 'space' in rank order
+    (exact data movement), so every rank sums the same (B, H, 2, C) array
+    as the single-device path, the same way: bitwise-equal totals on the
+    CPU. An all-reduce of per-rank sums would reassociate the f32 sum,
+    which GroupNorm's variance subtraction amplifies by (mean / std)^2
+    (the JAX package's ``_reduce_row_stats``)."""
+    if mesh is not None:
+        st = gather_rows(st, mesh, "moments")
     tot = st.sum(1)
     return tot[:, 0], tot[:, 1]
 
@@ -73,14 +94,15 @@ def _scale_shift(gn_scale, gn_bias, mean_c, ex2_c, groups, eps):
 
 
 def gn_scale_shift(x, gn_scale, gn_bias, x2=None, stats_in=None,
-                   stats_in2=None, num_groups=32, eps=1e-5):
-    """(B, C + C2) f32 scale and shift of GroupNorm over [x, x2]."""
-    hw = x.shape[1] * x.shape[2]
-    s, s2 = _reduce_row_stats(stats_in if stats_in is not None else _row_moments(x))
+                   stats_in2=None, num_groups=32, eps=1e-5, mesh=None):
+    """(B, C + C2) f32 scale and shift of GroupNorm over [x, x2] (the
+    whole image's under an H-shard: hw is the global H * W)."""
+    hw = x.shape[1] * x.shape[2] * (mesh.n_space if mesh is not None else 1)
+    s, s2 = _reduce_row_stats(stats_in if stats_in is not None else _row_moments(x), mesh)
     mean_c, ex2_c = s / hw, s2 / hw
     if x2 is not None:
         s, s2 = _reduce_row_stats(
-            stats_in2 if stats_in2 is not None else _row_moments(x2))
+            stats_in2 if stats_in2 is not None else _row_moments(x2), mesh)
         mean_c = torch.cat([mean_c, s / hw], 1)
         ex2_c = torch.cat([ex2_c, s2 / hw], 1)
     return _scale_shift(gn_scale, gn_bias, mean_c, ex2_c, num_groups, eps)
@@ -93,27 +115,53 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
+def _check_halo(x, x2, mesh, halo, halo2):
+    if halo is None:
+        _check(halo2 is None, "halo2 without halo")
+        return
+    _check(mesh is not None, "halo needs the mesh (its edge flags)")
+    _check((x2 is None) == (halo2 is None), "halo2 must come with x2, and only with it")
+    b, _, w, _ = x.shape
+    for rows, src in ((halo, x), (halo2, x2)):
+        for row in rows if rows is not None else ():
+            _check(row.shape == (b, 1, w, src.shape[-1]) and row.dtype == src.dtype
+                   and row.device == src.device,
+                   f"halo row {tuple(row.shape)} {row.dtype}: need (B, 1, W, C) like its source")
+
+
 def gn_swish_conv3x3_plain(x, gn_scale, gn_bias, kernel, bias, time_bias=None,
                            residual=None, x2=None, stats_in=None, num_groups=32,
                            eps=1e-5, emit_stats=False, res_kernel=None,
-                           res_bias=None, stats_in2=None):
+                           res_bias=None, stats_in2=None, mesh=None, halo=None,
+                           halo2=None):
     """The kernel's function in plain PyTorch, with its bf16 roundings:
-    the weights, and the activation where x is bf16."""
+    the weights, and the activation where x is bf16. With ``halo`` the
+    raw halo rows are stacked around x and activated with the same scale
+    and shift, zeroed at the true image edges, and the conv is VALID in H
+    and SAME in W."""
+    _check_halo(x, x2, mesh, halo, halo2)
     c = x.shape[-1]
     half = x.dtype == torch.bfloat16
     scale, shift = gn_scale_shift(x, gn_scale, gn_bias, x2, stats_in,
-                                  stats_in2, num_groups, eps)
+                                  stats_in2, num_groups, eps, mesh)
 
-    def act(v, sc, sh):
+    def act(v, rows, sc, sh):
+        if rows is not None:
+            v = torch.cat([rows[0], v, rows[1]], 1)
         a = v.float() * sc[:, None, None, :] + sh[:, None, None, :]
         a = a * torch.sigmoid(a)
-        return _bf16(a) if half else a
+        a = _bf16(a) if half else a
+        if rows is None:
+            return a
+        prev_row, next_row = edge_mask(a[:, :1], a[:, -1:], mesh)
+        return torch.cat([prev_row, a[:, 1:-1], next_row], 1)
 
-    a = act(x, scale[:, :c], shift[:, :c])
+    a = act(x, halo, scale[:, :c], shift[:, :c])
     if x2 is not None:
-        a = torch.cat([a, act(x2, scale[:, c:], shift[:, c:])], -1)
+        a = torch.cat([a, act(x2, halo2, scale[:, c:], shift[:, c:])], -1)
     w = _bf16(kernel).permute(3, 2, 0, 1)
-    out = F.conv2d(a.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+    pad = 1 if halo is None else (0, 1)
+    out = F.conv2d(a.permute(0, 3, 1, 2), w, padding=pad).permute(0, 2, 3, 1)
     out = out + bias.float()
     if time_bias is not None:
         out = out + time_bias.float()[:, None, None, :]
@@ -166,7 +214,8 @@ def _entry():
     lib = build.load("fused_conv")
     fn = lib.hsi_gn_swish_conv3x3
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -182,7 +231,7 @@ def _check(cond, msg):
 
 def _launch(x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
             stats_in, num_groups, eps, emit_stats, res_kernel, res_bias,
-            stats_in2, packed):
+            stats_in2, mesh, halo, halo2, packed):
     global LAUNCHES
     B, H, W, C = x.shape
     C2 = x2.shape[-1] if x2 is not None else 0
@@ -216,9 +265,18 @@ def _launch(x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
         if t is not None:
             _check(t.shape == shape and t.device == dev,
                    f"{name} {tuple(t.shape)} on {t.device}: need {shape} on {dev}")
+    _check_halo(x, x2, mesh, halo, halo2)
+    hp, hn = halo if halo is not None else (None, None)
+    hp2, hn2 = halo2 if halo2 is not None else (None, None)
+    for row in (hp, hn, hp2, hn2):
+        if row is not None:
+            _check(row.is_contiguous() and row.data_ptr() % 16 == 0,
+                   "halo rows must be contiguous")
+    # rows -1 and H are out of the image unless a neighbour's halo row is there
+    is_first, is_last = edge_flags(mesh) if halo is not None else (True, True)
 
     scale, shift = gn_scale_shift(x, gn_scale, gn_bias, x2, stats_in,
-                                  stats_in2, num_groups, eps)
+                                  stats_in2, num_groups, eps, mesh)
     scale, shift = scale.contiguous(), shift.contiguous()
     bias = bias.float().contiguous()
     tb = time_bias.float().contiguous() if time_bias is not None else None
@@ -233,7 +291,8 @@ def _launch(x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
         rc = fn(_ptr(x), _ptr(x2), _ptr(scale), _ptr(shift), _ptr(packed.wpack),
                 _ptr(packed.rpack), _ptr(bias), _ptr(tb), _ptr(residual), _ptr(rb),
                 _ptr(out), _ptr(stats), _ptr(res), B, H, W, C, C2, cout,
-                int(x.dtype == torch.bfloat16), stream)
+                int(x.dtype == torch.bfloat16), _ptr(hp), _ptr(hn), _ptr(hp2), _ptr(hn2),
+                int(is_first), int(is_last), stream)
     LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"gn_swish_conv3x3 kernel launch failed: cudaError {rc}")
@@ -248,7 +307,8 @@ def _launch(x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
 def gn_swish_conv3x3(x, gn_scale, gn_bias, kernel, bias, time_bias=None,
                      residual=None, x2=None, stats_in=None, num_groups=32,
                      eps=1e-5, emit_stats=False, res_kernel=None,
-                     res_bias=None, stats_in2=None, packed=None):
+                     res_bias=None, stats_in2=None, mesh=None, halo=None, halo2=None,
+                     packed=None):
     """Fused GroupNorm(num_groups) -> swish -> conv3x3(SAME) [+ extras].
 
     x: (B, H, W, C) NHWC; x2: optional (B, H, W, C2) second source read
@@ -258,14 +318,18 @@ def gn_swish_conv3x3(x, gn_scale, gn_bias, kernel, bias, time_bias=None,
     per-row [sum, sumsq] of x / x2; res_kernel: (1, 1, C + C2, Cout) with
     res_bias (Cout,). ``packed``: the weights from ``pack_conv3x3`` of
     the same kernel and res_kernel (callers that launch repeatedly pass
-    it so nothing is packed per call).
+    it so nothing is packed per call). Under an H-shard: ``mesh`` (the
+    rank's ``parallel.mesh.Mesh``; the moments become the whole image's)
+    and ``halo`` / ``halo2``, each the (prev_row, next_row) pair of
+    (B, 1, W, C|C2) raw rows that ``exchange_halo`` gives for x / x2.
 
     Returns (B, H, W, Cout) in x.dtype; with ``emit_stats`` also the
     (B, H, 2, Cout) f32 per-row [sum, sumsq] of the output; with
     ``res_kernel`` also the res projection, last.
     """
     args = (x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
-            stats_in, num_groups, eps, emit_stats, res_kernel, res_bias, stats_in2)
+            stats_in, num_groups, eps, emit_stats, res_kernel, res_bias, stats_in2,
+            mesh, halo, halo2)
     if x.device.type == "cpu":
         return gn_swish_conv3x3_plain(*args)
     if x.device.type != "cuda":

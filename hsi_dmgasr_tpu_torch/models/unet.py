@@ -31,6 +31,15 @@ GroupNorm reduces its own input). The kernel is a GroupNorm kernel: the
 BatchNorm variant keeps its Blocks unfused, as the JAX package's gate
 does, and only its up path takes the exact dilated conv.
 
+``spatial`` (the JAX package's ``spatial_axis``), a ``parallel.mesh.Mesh``
+passed to ``forward``, runs the fused inference forward on this rank's
+H-shard of every activation: the fused Blocks get their neighbours' halo
+rows and the whole image's GroupNorm moments, the initial conv and the
+downsamples are ``conv3x3_spatial``, the upsamples
+``up2_conv3x3_spatial``, and attention gathers its input over 'space',
+runs the single-device block and keeps its own rows. Any unfused Block
+under ``spatial`` raises ``NotImplementedError``, as in the JAX package.
+
 Mixed precision follows the JAX package: the module's dtype is its
 weights' (``.to(torch.bfloat16)`` for bf16 inference), the activations
 follow the input's dtype, the norms compute in f32 and round once, and
@@ -40,6 +49,7 @@ the noise encoding stays in the noise level's dtype.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +59,11 @@ from ..kernels.attention import spatial_attention
 from ..kernels.fused_conv import gn_swish_conv3x3, pack_conv3x3
 from ..ops.blocks import Conv2d
 from ..ops.fused_up import up2_conv3x3
+from ..parallel.spatial import (conv3x3_spatial, exchange_halo, gather_rows,
+                                up2_conv3x3_spatial)
+
+_SPATIAL_UNFUSED = ("spatial sharding requires the fused inference path "
+                    "(fuse_blocks, GroupNorm, eval mode)")
 
 
 def swish(x):
@@ -198,16 +213,24 @@ class Block(nn.Module):
         return self._packed
 
     def fused(self, x, time_bias=None, residual=None, x2=None, stats_in=None,
-              emit_stats=False, res_conv=None, stats_in2=None):
+              emit_stats=False, res_conv=None, stats_in2=None, spatial=None):
+        """Under ``spatial`` x (and x2) are H-shards: their halo rows are
+        exchanged and handed to the kernel with the mesh."""
         gn, conv = self.block[0], self.block[3]
         res_k = res_b = None
         if res_conv is not None:
             res_k, res_b = res_conv.weight.permute(2, 3, 1, 0), res_conv.bias
+        halo = halo2 = None
+        if spatial is not None:
+            halo = exchange_halo(x, spatial)
+            if x2 is not None:
+                halo2 = exchange_halo(x2, spatial)
         return gn_swish_conv3x3(
             x, gn.weight, gn.bias, conv.weight.permute(2, 3, 1, 0), conv.bias,
             time_bias=time_bias, residual=residual, x2=x2, stats_in=stats_in,
             num_groups=gn.num_groups, eps=gn.eps, emit_stats=emit_stats,
             res_kernel=res_k, res_bias=res_b, stats_in2=stats_in2,
+            mesh=spatial, halo=halo, halo2=halo2,
             packed=self._pack(res_conv) if x.is_cuda else None)
 
 
@@ -253,11 +276,13 @@ class ResnetBlock(nn.Module):
         self.res_conv = Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def forward(self, x, emb, x2=None, stats_in=None, emit_stats=False,
-                x2_stats=None):
+                x2_stats=None, spatial=None):
         """Returns (out, stats); stats are the output's per-row moments
         on the fused path with ``emit_stats``, else None."""
         if self.fuse and not self.training:
-            return self._fused(x, emb, x2, stats_in, emit_stats, x2_stats)
+            return self._fused(x, emb, x2, stats_in, emit_stats, x2_stats, spatial)
+        if spatial is not None:
+            raise NotImplementedError(_SPATIAL_UNFUSED)
         xin = torch.cat([x, x2], -1) if x2 is not None else x
         h = self.block1(xin)
         if self.noise_func is not None:
@@ -266,7 +291,7 @@ class ResnetBlock(nn.Module):
             h = h + self.mlp(emb)[:, None, None, :]
         return self.block2(h) + self.res_conv(xin), None
 
-    def _fused(self, x, emb, x2, stats_in, emit_stats, x2_stats):
+    def _fused(self, x, emb, x2, stats_in, emit_stats, x2_stats, spatial):
         if x2 is not None and not self.fuse_skip:
             # concat, and concat the moments when both are known
             x = torch.cat([x, x2], -1)
@@ -279,14 +304,15 @@ class ResnetBlock(nn.Module):
         res_conv = self.res_conv if c_in != self.dim_out else None
         parts = self.block1.fused(x, time_bias=tb, x2=x2, emit_stats=self.fuse_stats,
                                   stats_in=stats_in, res_conv=res_conv,
-                                  stats_in2=x2_stats)
+                                  stats_in2=x2_stats, spatial=spatial)
         parts = parts if isinstance(parts, tuple) else (parts,)
         h, s1 = parts[0], parts[1] if self.fuse_stats else None
         if res_conv is not None:
             res = parts[-1]
         else:
             res = torch.cat([x, x2], -1) if x2 is not None else x
-        out = self.block2.fused(h, residual=res, stats_in=s1, emit_stats=emit_stats)
+        out = self.block2.fused(h, residual=res, stats_in=s1, emit_stats=emit_stats,
+                                spatial=spatial)
         return out if emit_stats else (out, None)
 
 
@@ -301,13 +327,24 @@ class SelfAttention(nn.Module):
         self.qkv = Conv2d(in_channel, in_channel * 3, 1, bias=False)
         self.out = Conv2d(in_channel, in_channel, 1)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        """Under ``spatial`` x is an H-shard: the whole image is gathered,
+        the single-device block runs on it on every rank, and the rank
+        keeps its own rows. Attention is global and runs only at the small
+        levels, and this keeps the sharded output that of one device."""
+        h_loc = x.shape[1]
+        if spatial is not None:
+            x = gather_rows(x, spatial, "attention")
         b, h, w, c = x.shape
         head_dim = c // self.n_head
         qkv = self.qkv(self.norm(x)).reshape(b, h * w, self.n_head, 3 * head_dim)
         q, k, v = qkv.split(head_dim, dim=-1)
         out = spatial_attention(q, k, v, scale=1.0 / math.sqrt(c))
-        return self.out(out.reshape(b, h, w, c)) + x
+        out = self.out(out.reshape(b, h, w, c)) + x
+        if spatial is None:
+            return out
+        i = spatial.space_idx
+        return out[:, i * h_loc:(i + 1) * h_loc].contiguous()
 
 
 class ResnetBlocWithAttn(nn.Module):
@@ -321,13 +358,14 @@ class ResnetBlocWithAttn(nn.Module):
         if with_attn:
             self.attn = SelfAttention(dim_out, norm_groups=norm_groups, norm=norm)
 
-    def forward(self, x, emb, x2=None, stats_in=None, x2_stats=None):
+    def forward(self, x, emb, x2=None, stats_in=None, x2_stats=None, spatial=None):
         """Returns (out, stats); attention changes the tensor, so it
         resets the moment chain."""
         x, stats = self.res_block(x, emb, x2=x2, stats_in=stats_in,
-                                  x2_stats=x2_stats, emit_stats=not self.with_attn)
+                                  x2_stats=x2_stats, emit_stats=not self.with_attn,
+                                  spatial=spatial)
         if self.with_attn:
-            x, stats = self.attn(x), None
+            x, stats = self.attn(x, spatial=spatial), None
         return x, stats
 
 
@@ -336,7 +374,10 @@ class Downsample(nn.Module):
         super().__init__()
         self.conv = Conv2d(dim, dim, 3, stride=2)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        if spatial is not None:
+            return conv3x3_spatial(x, self.conv.weight.permute(2, 3, 1, 0), self.conv.bias,
+                                   spatial, stride=2)
         return self.conv(x)
 
 
@@ -345,7 +386,10 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = Conv2d(dim, dim, 3)
 
-    def forward(self, x, fused=False):
+    def forward(self, x, fused=False, spatial=None):
+        if spatial is not None:
+            return up2_conv3x3_spatial(x, self.conv.weight.permute(2, 3, 1, 0), self.conv.bias,
+                                       spatial)
         if fused:
             return up2_conv3x3(x, self.conv.weight.permute(2, 3, 1, 0), self.conv.bias)
         up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
@@ -427,30 +471,55 @@ class UNet(nn.Module):
             if isinstance(m, Dropout):
                 m.generator = generator
 
-    def forward(self, x, time):
+    @contextmanager
+    def fusing(self):
+        """Every GroupNorm Block fused inside the block, whatever
+        ``fuse_blocks`` says (the JAX package's ``clone(fuse_blocks=True)``
+        for its spatial sampler)."""
+        blocks = [m for m in self.modules() if isinstance(m, ResnetBlock)]
+        saved = self.fuse_blocks, [b.fuse for b in blocks]
+        self.fuse_blocks = True
+        for b in blocks:
+            b.fuse = self.norm == "group"
+        try:
+            yield self
+        finally:
+            self.fuse_blocks = saved[0]
+            for b, f in zip(blocks, saved[1]):
+                b.fuse = f
+
+    def forward(self, x, time, spatial=None):
         """x: (B, H, W, in_channel) NHWC; time: the (B, 1) noise level, or
-        with the discrete embedding the (B,) integer timestep."""
+        with the discrete embedding the (B,) integer timestep. ``spatial``:
+        this rank's mesh, x its H-shard (the fused inference path only)."""
         fused = self.fuse_blocks and not self.training
+        if spatial is not None and not (fused and self.norm == "group"):
+            raise NotImplementedError(_SPATIAL_UNFUSED)
         mlp = self.time_mlp if self.time_mlp is not None else self.noise_level_mlp
         emb = mlp(time) if mlp is not None else None
 
-        h = self.downs[0](x)
+        if spatial is None:
+            h = self.downs[0](x)
+        else:
+            conv = self.downs[0]
+            h = conv3x3_spatial(x, conv.weight.permute(2, 3, 1, 0), conv.bias, spatial)
         feats = [(h, None)]
         h_stats = None
         for layer in self.downs[1:]:
             if isinstance(layer, ResnetBlocWithAttn):
-                h, h_stats = layer(h, emb, stats_in=h_stats)
+                h, h_stats = layer(h, emb, stats_in=h_stats, spatial=spatial)
             else:
-                h, h_stats = layer(h), None
+                h, h_stats = layer(h, spatial=spatial), None
             feats.append((h, h_stats))
         for layer in self.mid:
-            h, h_stats = layer(h, emb, stats_in=h_stats)
+            h, h_stats = layer(h, emb, stats_in=h_stats, spatial=spatial)
         for layer in self.ups:
             if isinstance(layer, ResnetBlocWithAttn):
                 x2, x2_stats = feats.pop()
-                h, h_stats = layer(h, emb, x2=x2, stats_in=h_stats, x2_stats=x2_stats)
+                h, h_stats = layer(h, emb, x2=x2, stats_in=h_stats, x2_stats=x2_stats,
+                                   spatial=spatial)
             else:
-                h, h_stats = layer(h, fused=fused), None
+                h, h_stats = layer(h, fused=fused, spatial=spatial), None
         if fused and self.norm == "group":
-            return self.final_conv.fused(h, stats_in=h_stats)
+            return self.final_conv.fused(h, stats_in=h_stats, spatial=spatial)
         return self.final_conv(h)

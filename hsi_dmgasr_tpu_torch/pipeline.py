@@ -13,8 +13,12 @@ Port of ``hsi_dmgasr_tpu/pipeline.py`` (reference sr_gae.py:221-250 and
     apply the latent affine, fold the groups into the batch, run the
     reverse chain once for all of them, unfold, GAE-decode, clip to [0, 1];
     and the HSI metric suite.
+  * ``super_resolve_spatial``: the same inference for one cube over a
+    ('data', 'space') mesh of ranks (``parallel/``), for latency: band
+    groups ride 'data', the latent's height rides 'space', and the fused
+    UNet runs on H-shards with halo rows and the whole image's moments.
 
-Tiled and spatially sharded inference are not ported yet.
+Tiled inference is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,12 +30,11 @@ import torch
 
 from .data.imresize import make_imresize_torch
 from .device import resolve_device
-from .evalhsi.metrics import color_correction as _color_correction
-from .evalhsi.metrics import quality_assessment
-from .evalhsi.torch_metrics import quality_assessment_torch
 from .io.convert_torch import load_state_dict
 from .models.gae import GAE
 from .models.networks import init_weights
+from .parallel.mesh import gather
+from .parallel.spatial import gather_rows
 from .train.ddpm_model import DDPMModel
 
 
@@ -137,6 +140,94 @@ class DMGASRPipeline:
             cond, generator=generator, x_init=x_init, noise_seq=noise_seq), b)
         return self.decode(z_out).clamp(0.0, 1.0)
 
+    def _chain_draws(self, cond, t_start, generator):
+        """x_init and the noise of every step, drawn from ``generator`` as
+        ``super_resolve``'s ancestral chain draws them, in its order (the
+        last step adds none: its noise is zeros)."""
+        d = self.ddpm.val_diffusion
+        t0 = d.schedule.num_timesteps if t_start is None else int(t_start)
+
+        def randn():
+            return torch.randn(cond.shape, generator=generator, dtype=torch.float32,
+                               device=cond.device)
+
+        x_init = randn() if t_start is None else d.init_from_cond(cond, t0, generator)
+        noise = [randn() for _ in range(t0 - 1)] + [torch.zeros_like(x_init)]
+        return x_init, torch.stack(noise)
+
+    @torch.inference_mode()
+    def super_resolve_spatial(self, sr_cube, mesh, generator=None, fused=True,
+                              replay_noise=False, x_init=None, noise_seq=None):
+        """``super_resolve`` of one cube over a ('data', 'space') mesh of
+        ranks (``parallel.mesh.dmgasr_mesh``), for latency. Every rank of the
+        mesh calls it with the same cube, and every rank returns the whole
+        super-resolved cube (B, H, W, C) in [0, 1].
+
+        The GAE encodes and decodes the whole cube on every rank. The
+        (B*G) condition is wrap-padded to a multiple of n_data, and each
+        rank runs the ancestral chain on its block of it:
+          * ``fused=True``: its ('data', 'space') block, through the fused
+            UNet on H-shards (``models/unet.py``'s ``spatial``), whatever
+            ``fuse_blocks`` says; the latent's height must divide over
+            'space' down to the smallest level;
+          * ``fused=False``: its band groups, the whole image, through the
+            model's own chain (the UNet as configured).
+        Then the chains are gathered over 'space' and 'data' and unpadded.
+
+        Noise: with ``replay_noise`` (and always with ``fused=False``)
+        x_init and the noise of every step are drawn from ``generator`` as
+        ``super_resolve`` draws them and then cut to the rank's block, so
+        the result is the single-device one; ``x_init``/``noise_seq`` (the
+        folded, unpadded latent shape, as for ``super_resolve``) replay
+        given noise instead. Otherwise each rank draws its block's noise
+        from its own generator, seeded from (seed, space index, data index),
+        the seed drawn from ``generator`` (which must then be in the same
+        state on every rank)."""
+        sampler, _, t_start = self.ddpm._sampler()
+        if sampler != "ancestral":
+            raise ValueError(f"super_resolve_spatial runs the ancestral chain, "
+                             f"not model.diffusion.sampler {sampler!r}")
+        g = generator if generator is not None else self.ddpm.generator
+        b = sr_cube.shape[0]
+        cond = self._fold(self._encode(sr_cube))
+        n, h = cond.shape[0], cond.shape[1]
+        if fused and h % mesh.n_space:
+            raise ValueError(f"latent height {h} does not divide over {mesh.n_space} ranks")
+        padded = torch.arange(n + (-n) % mesh.n_data, device=cond.device) % n
+        per = padded.numel() // mesh.n_data
+        groups = padded[mesh.data_idx * per:(mesh.data_idx + 1) * per]
+        hl = h // mesh.n_space if fused else h
+        r0 = mesh.space_idx * hl if fused else 0
+
+        def block(t, dim=0):  # this rank's groups (on dim) and rows (on dim + 1)
+            return t.index_select(dim, groups).narrow(dim + 1, r0, hl).contiguous()
+
+        if x_init is None and (replay_noise or not fused):
+            x_init, noise_seq = self._chain_draws(cond, t_start, g)
+        d = self.ddpm.val_diffusion
+        cond_b = block(cond)
+        if x_init is not None:
+            x_init = block(torch.as_tensor(x_init, dtype=torch.float32, device=self.device))
+            noise_seq = block(torch.as_tensor(noise_seq, dtype=torch.float32,
+                                              device=self.device), dim=1)
+        if not fused:
+            z = self.ddpm.super_resolution(cond_b, x_init=x_init, noise_seq=noise_seq)
+        else:
+            rank_g = None
+            if x_init is None:
+                seed = int(torch.randint(2 ** 62, (), generator=g, device=g.device))
+                mixed = np.random.SeedSequence([seed, mesh.space_idx, mesh.data_idx])
+                rank_g = torch.Generator(device=self.device).manual_seed(
+                    int(mixed.generate_state(1, np.uint64)[0]))
+            unet = self.ddpm.eval_unet
+            with unet.fusing():
+                z = d.sample_loop(lambda x, t: unet(x, t, spatial=mesh), cond=cond_b,
+                                  x_init=x_init, noise_seq=noise_seq, t_start=t_start,
+                                  generator=rank_g)
+            z = gather_rows(z, mesh, "output")
+        z = gather(z, mesh, "data", 0, "output")[:n]
+        return self.decode(self._unfold(z, b)).clamp(0.0, 1.0)
+
     def reconstruct(self, cube):
         """GAE round trip (no diffusion): the stage-1 quality check."""
         return self.decode(self.encode(cube)).clamp(0.0, 1.0)
@@ -147,6 +238,11 @@ class DMGASRPipeline:
                  on_device=True, generator=None, x_init=None, noise_seq=None):
         """Super-resolve + HSI metric dict (sr_gae.py:489-496).
         Returns (metrics, prediction, seconds)."""
+        # imported here: the metrics pull in scipy, which the inference
+        # ranks of super_resolve_spatial need not load
+        from .evalhsi.metrics import color_correction, quality_assessment
+        from .evalhsi.torch_metrics import quality_assessment_torch
+
         t0 = time.perf_counter()
         pred = self.super_resolve(sr_cube, generator=generator, x_init=x_init,
                                   noise_seq=noise_seq)
@@ -159,7 +255,7 @@ class DMGASRPipeline:
         hrs = np.asarray(hr_cube)
         for y, gt in zip(preds, hrs):
             if use_color_correction:
-                y = _color_correction(gt, y, num_channels=self.n_colors)
+                y = color_correction(gt, y, num_channels=self.n_colors)
             if on_device:
                 m = quality_assessment_torch(
                     torch.as_tensor(gt, device=self.device),

@@ -46,12 +46,12 @@ ABLATIONS = {
     "copies and barrier": (_MMA, _ACTIVATION),
 }
 
-# (x shape, C2, Cout, time bias, residual, stats_in, stats_in2, stats, proj),
-# as chip_smoke.py records them
+# (x shape, C2, Cout, time bias, residual, stats_in, stats_in2, stats, proj,
+# dtype), as chip_smoke.py records them
 SIGNATURES = (
-    ((9, 128, 128, 256), 0, 256, False, True, True, False, True, False),
-    ((9, 512, 512, 64), 0, 64, True, False, False, False, True, False),
-    ((9, 64, 64, 1024), 0, 512, True, False, False, False, True, True),
+    ((9, 128, 128, 256), 0, 256, False, True, True, False, True, False, "f32"),
+    ((9, 512, 512, 64), 0, 64, True, False, False, False, True, False, "f32"),
+    ((9, 64, 64, 1024), 0, 512, True, False, False, False, True, True, "f32"),
 )
 
 

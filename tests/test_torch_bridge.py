@@ -99,7 +99,8 @@ def test_port_imports_no_jax():
                    "cli/ae.py", "cli/gae_test.py", "cli/common.py", "cli/infer.py",
                    "cli/sample.py", "cli/eval.py", "cli/eval_hsi.py", "cli/compare.py",
                    "evalhsi/image_io.py", "evalhsi/png.py", "utils/loggers.py",
-                   "utils/profiling.py"):
+                   "utils/profiling.py", "parallel/__init__.py", "parallel/multihost.py",
+                   "parallel/mesh.py", "parallel/spatial.py"):
         assert ROOT / "hsi_dmgasr_tpu_torch" / module in files, module
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in _FORBIDDEN]
@@ -152,3 +153,14 @@ def test_entry_points_default_to_cuda():
         ae.main(["--data", "unused"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gae_test.main(["--ckpt", "unused", "--data", "unused"])
+
+    # spatially sharded inference: super_resolve_spatial runs on its
+    # pipeline's device (above) over a mesh of ranks, whose process group
+    # and mesh default to CUDA too
+    from hsi_dmgasr_tpu_torch.parallel import dmgasr_mesh, multihost
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.initialize()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dmgasr_mesh(1, 1)
+    assert dmgasr_mesh(1, 1, device="cpu").device.type == "cpu"

@@ -137,6 +137,64 @@ def test_kernel_bf16_operands_match_plain(dev, shape, extras):
     _compare(got, want, kw["emit_stats"])
 
 
+# H-shard launches: the shard's neighbours' raw boundary rows (halo, and
+# halo2 for x2) at a first, middle or last shard of three. A one-process
+# mesh gives the edge flags; its moments are the shard's own, the same
+# for the kernel and the plain version.
+HALO_CASES = [
+    ((2, 8, 16, 32, 0, 32), "tb"),
+    ((1, 6, 40, 64, 64, 64), "stats+proj"),     # x2 with halo2, ragged last tile
+    ((2, 5, 24, 64, 0, 3), "stats_in+stats"),   # the thin Cout=3 tile
+    ((1, 4, 130, 64, 0, 128), "res+stats"),     # two W segments, 128-wide N
+    ((1, 8, 8, 512, 0, 512), "tb+stats"),       # a deep level: W = 8
+]
+
+
+def _halo(args, kw, dtype, dev, seed=1):
+    x, x2 = args[0], kw["x2"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rows(src):
+        b, _, w, c = src.shape
+        return tuple(torch.randn((b, 1, w, c), generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+
+    return rows(x), rows(x2) if x2 is not None else None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("position", [0, 1, 2])
+@pytest.mark.parametrize("shape,extras", HALO_CASES)
+def test_kernel_with_halo_matches_plain(dev, shape, extras, dtype, position):
+    from hsi_dmgasr_tpu_torch.parallel.mesh import Mesh
+
+    args, kw = _case(*shape, extras, dtype, dev)
+    kw["halo"], kw["halo2"] = _halo(args, kw, dtype, dev)
+    kw["mesh"] = Mesh(n_data=1, n_space=3, data_idx=0, space_idx=position, device=dev)
+    want = fused_conv.gn_swish_conv3x3_plain(*args, **kw)
+    n0 = fused_conv.LAUNCHES
+    got = fused_conv.gn_swish_conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_conv.LAUNCHES == n0 + 1
+    _compare(got, want, kw["emit_stats"])
+
+
+@pytest.mark.parametrize("shape,extras", HALO_CASES[:2])
+def test_kernel_halo_at_both_edges_reads_no_halo(dev, shape, extras):
+    """One shard of one: both flags mark a true edge, so the halo rows are
+    never read and the output is the launch without halo, bit for bit."""
+    from hsi_dmgasr_tpu_torch.parallel.mesh import Mesh
+
+    args, kw = _case(*shape, extras, torch.float32, dev)
+    want = fused_conv.gn_swish_conv3x3(*args, **kw)
+    kw["halo"], kw["halo2"] = _halo(args, kw, torch.float32, dev)
+    kw["mesh"] = Mesh(n_data=1, n_space=1, data_idx=0, space_idx=0, device=dev)
+    got = fused_conv.gn_swish_conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+    assert torch.equal(got[0], want[0])
+
+
 def test_kernel_rejects_unaligned_channels(dev):
     args, kw = _case(1, 4, 8, 16, 0, 16, "none", torch.float32, dev)
     with pytest.raises(ValueError, match="multiples"):
