@@ -6,10 +6,10 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives eleven main paths. Five are x4 DMGASR on a
-512x512x102 Pavia-geometry cube at full width (UNet inner 64, mults
-1,2,4,8,8, res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16,
-n_ovls 4, n_feats 64, G=9; seeded random weights):
+checkout. It drives fourteen main paths. Seven are x4 DMGASR on
+Pavia-geometry cubes at full width (UNet inner 64, mults 1,2,4,8,8,
+res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16, n_ovls 4, n_feats
+64, G=9; seeded random weights), on a 512x512x102 cube unless said:
 
   * configs/pavia_x4_r3.json: image_size 128, the chain entered at
     t_start=4, latent affine; attention at 64^2 and 32^2 stays below the
@@ -29,6 +29,18 @@ n_ovls 4, n_feats 64, G=9; seeded random weights):
     two rows, the t_start=4 cube and the full T=20 chain, launch 220 and
     1100 fused Blocks and no flash; it prints the bench's JSON line (both
     cube times, the UNet step's roofline share).
+  * pavia_x4_r3_chunked: configs/pavia_x4_r3.json with
+    model.diffusion.latent_chunk 12 on 4 cubes (the JAX README's
+    throughput mode): 36 latents in 3 chains of 12, 660 fused-Block
+    launches per call at B=12; then the same batch unchunked from the same
+    replayed draws (its row pavia_x4_r3_chunked:unchunked, 220 launches at
+    B=36), the two held to TOL_UNET, each with its seconds per cube and
+    peak memory.
+  * pavia_x4_tiled: one seeded 1096x715x102 SR cube (the Pavia Centre
+    scene's size) through super_resolve_tiled(tile 512, overlap 32) under
+    the r3 config: 6 tiles of 512^2 (origins y 0, 480, 584; x 0, 203), 1320
+    fused-Block launches per scene; the last tile held to super_resolve of
+    its patch from the same generator (TOL_UNET).
   * pavia_x4_spatial: configs/pavia_x4.json through super_resolve_spatial
     on a ('data', 'space') = (1, 2) mesh: two ranks spawned on the one
     card (gloo, a file:// store), each holding 256 of the 512 latent rows,
@@ -37,8 +49,8 @@ n_ovls 4, n_feats 64, G=9; seeded random weights):
     attentions (on the gathered 128^2 level) per cube. Two ranks share one
     card: its times are not multi-card times.
 
-The sixth and seventh are the two training stages at the same full
-width, chained as a user chains them:
+The eighth to tenth are the two training stages at the same full width,
+chained as a user chains them, and stage 2 with remat:
 
   * train_gae: stage-1 GAE training through the port's CLI (cli.ae, at
     its defaults: n_subs 16, n_ovls 4, n_colors 102, n_feats 64, scale 4,
@@ -57,11 +69,16 @@ width, chained as a user chains them:
     directory train_gae saved. The steps launch no kernel; the validation
     launches 55 x 4 fused Blocks per (scene, chain), 1980, and writes
     each scene's PNGs (three bands of sr, hr and input, the Jet error map).
+  * train_r3_remat: train_r3's configuration with model.unet.remat off and
+    on, each from seed 0 on the same GAE: one step's loss and every
+    gradient from the same crops and dropout generator, remat against
+    plain within atol 1e-4, rtol 1e-3 (tests/test_remat.py's), then 5
+    steps of each, their ms per step and peak memory. No kernel launch.
 
 Both train on the same 8 training scenes of 256^2 and validate on the
 same 3 val scenes of 128^2, written from a seed under build/scenes.
 
-The eighth is unconditional generation, the discrete-t BatchNorm DDPM
+The eleventh is unconditional generation, the discrete-t BatchNorm DDPM
 variant:
 
   * sample_ddpm_16: configs/sample_ddpm_16.json at its full width (inner
@@ -73,7 +90,7 @@ variant:
     UNet forwards take at most 30 s, else DDIM over 100 steps. Its
     Blocks are BatchNorm, so no kernel of the port runs.
 
-The ninth and tenth are the SR3 face configs through the port's CLIs,
+The twelfth and thirteenth are the SR3 face configs through the port's CLIs,
 on 4 seeded 128^2 face-like PNGs (and their 16 -> 128 SR images) that
 the port's own PNG writer puts under build/faces:
 
@@ -91,7 +108,7 @@ the port's own PNG writer puts under build/faces:
     schedules' 2000 steps to 100 (linear). BatchNorm Blocks: no kernel of
     the port runs.
 
-The eleventh is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
+The fourteenth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
 
   * int8_probe: chains of 4000 dependent dots x @ w with a requantize
     step, at M = 4096 and (K, N) = (512, 512), (576, 256), (192, 256),
@@ -111,7 +128,11 @@ In order:
     launch counts, times it (median of 3) and reads the peak memory; holds
     one full-width UNet forward with the kernels against the same forward
     with their plain versions (in bf16 for the bench; the f32 paths also
-    report both against the unfused f32 forward). Then pavia_x4_spatial:
+    report both against the unfused f32 forward). Then pavia_x4_r3_chunked
+    and its unchunked reference, each with its counts to 0, recorded and
+    counted, checked, timed and its peak memory read, the two held to each
+    other; then pavia_x4_tiled the same way, one tile held to
+    super_resolve. Then pavia_x4_spatial:
     the single-device pavia_x4 chain twice from its draws (the reference,
     and the spread of two such chains), then the two ranks, each with its
     counts to 0, one cube recorded and counted (1100 fused, 100 flash per
@@ -138,7 +159,9 @@ In order:
     and unfused forwards, one
     batch-1 step on the card against the same step on the CPU; ms per step
     (median after 2 warm-up steps), latents per second, peak memory, the
-    step's share of its f32 roofline, seconds per validation cube. Then the probe:
+    step's share of its f32 roofline, seconds per validation cube. Then
+    train_r3_remat: counts to 0, the remat step against the plain step,
+    ms per step and peak memory of each, no launch counted. Then the probe:
     counts to 0, the probe run once, the exact launch counts, and the int8
     chains of the kernel and the library held equal bit for bit after 4000
     links. Then sample_ddpm_16: counts to 0, its train step against the
@@ -154,7 +177,8 @@ In order:
     trained step; seconds per sample, peak memory. Then
     color_correction_torch on the card against the numpy version;
  4. for each recorded signature (f32 or bf16), on the card at that shape
-    (B=9): kernel vs its plain PyTorch version (asserted within tolerance), the
+    (B=9, and B=12 and B=36 for the chunked row, with fewer timing
+    repeats): kernel vs its plain PyTorch version (asserted within tolerance), the
     kernel's, the plain version's and one library call's times, and the
     bound; for the fused Block also its launch alone, replayed in a CUDA
     graph, and each signature's and level's share of its bound and ratio
@@ -174,7 +198,8 @@ In order:
 Details go to chiprun_out/chip_smoke.json. ``--profile`` adds one traced
 cube per path (the bench's t_start=4 row for bench_x4_bf16, one train
 step each for train_gae and train_r3, ten UNet forwards of the sampler
-for sample_ddpm_16, one image's chain for infer_sr3_16_128): device
+for sample_ddpm_16, one image's chain for infer_sr3_16_128; none for
+the chunked, tiled and remat rows): device
 time by kernel name
 (torch.profiler), the device's idle share and the seconds of each stage
 (GAE encode, reverse chain, GAE decode; for a stage-1 step: forward +
@@ -260,7 +285,29 @@ SPATIAL_JAX_TOL = 1e-4
 # cubes (in [0, 1]) may differ in the last bits of cuDNN's convolutions
 SPATIAL_RANK_TOL = 1e-6
 TWO_RANKS = "two ranks share one card (gloo), not a multi-card time"
-UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN, INFER, SPATIAL)
+# the sampler's latent chunks: configs/pavia_x4_r3.json with
+# model.diffusion.latent_chunk CHUNK on CHUNK_CUBES cubes, the JAX README's
+# throughput mode: 4 x 9 = 36 latents in 3 chains of 12, 220 fused Blocks
+# each. Its reference is the same batch unchunked (one chain of 36) from the
+# same replayed draws: the two are held to TOL_UNET (the stats atomics alone
+# move a chain by about 3e-3).
+CHUNKED, CHUNKED_WHOLE, CHUNK, CHUNK_CUBES = ("pavia_x4_r3_chunked",
+                                              "pavia_x4_r3_chunked:unchunked", 12, 4)
+CHUNK_PATHS = {CHUNKED: {FUSED: 3 * 220, FLASH: 0}, CHUNKED_WHOLE: {FUSED: 220, FLASH: 0}}
+# whole-scene tiled inference: one seeded SR cube the size of the Pavia
+# Centre scene through super_resolve_tiled(TILE, OVERLAP) under the r3
+# config: tile origins y 0, 480, 584 and x 0, 203, six 512^2 tiles of 220
+# fused Blocks each (the r3 cube's launch signatures)
+TILED, SCENE, TILE, OVERLAP = "pavia_x4_tiled", (1096, 715, 102), 512, 32
+TILE_ORIGINS = [(y, x) for y in (0, 480, 584) for x in (0, 203)]
+TILED_PER_SCENE = {FUSED: len(TILE_ORIGINS) * 220, FLASH: 0}
+UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN, INFER, SPATIAL, *CHUNK_PATHS, TILED)
+# train_r3's step with model.unet.remat on, against the same step without it
+# from the same weights, batch and dropout generator: the loss and every
+# gradient leaf within tests/test_remat.py's atol 1e-4 and rtol 1e-3; then
+# REMAT_STEPS steps of each (median after 2 warm-up), peak memory of each
+REMAT, REMAT_STEPS = "train_r3_remat", 5
+TOL_REMAT_ABS, TOL_REMAT_REL = 1e-4, 1e-3
 # unconditional generation under configs/sample_ddpm_16.json at its full
 # width (the discrete-t BatchNorm UNet, unfused: no kernel of the port): one
 # train step of SAMPLE_BATCH HR images of 128^2 x 3 against the CPU's, then
@@ -279,16 +326,11 @@ SAMPLE_CLI, SAMPLE_CLI_STEPS, SAMPLE_CLI_T = "sample_cli_ddpm_16", 4, 100
 FACES = 4  # seeded 128^2 HR images (and their 16 -> 128 SR images) for both CLIs
 # color_correction_torch on the card against the numpy color_correction
 TOL_COLOR = 1e-5
-# torch.profiler drops device events once a process has run a profiler
-# session and then launched many kernels: every flash row read 0 events in
-# --profile runs (the traced cubes come first, the int8 probe's and the
-# signature checks' launches before the flash rows), 1 of 10 after a
-# million small launches following one session, and a throwaway session
-# first did not always help. A fresh process's sessions saw every launch.
-# So the flash rows' device split is measured in a process of its own
-# (flash_split), each session must see every launch, and a short one is
-# measured once more.
-TRACE_ATTEMPTS = 2
+# torch.profiler drops device events: every flash row read 0 events in
+# --profile runs once the traced cubes had come first, and on another H100
+# a fresh process's two sessions each saw 4 of 5 launches. So the flash
+# rows' prepass/attention split is timed with CUDA events on the C entry's
+# phases (flash_times), and no gate depends on a trace.
 # stage-1 GAE training through the port's CLI (cli.ae) at the Pavia GAE's
 # width, device-resident scenes: 8 HR crops of 128^2 x 102 a step, so 72
 # group images through the shared encoder and decoder. 64 augmented items
@@ -633,8 +675,11 @@ def check_signature(sig, seed):
             raise AssertionError(f"{describe(sig)}: kernel vs plain {name} {errs[name]}")
     del got, want
 
-    ms = cuda_ms(lambda: fc.gn_swish_conv3x3(*args, packed=packed, **kw), reps=5)
-    kernel_ms = graph_ms(bare_launch(fc, args, kw, packed))
+    # the chunked row's B=12 and B=36 launches take up to 4x as long as
+    # B=9's: fewer repeats keep their rows' share of the run's time
+    reps, calls = (5, 20) if sig[0][0] <= 9 else (2, 5)
+    ms = cuda_ms(lambda: fc.gn_swish_conv3x3(*args, packed=packed, **kw), reps=reps)
+    kernel_ms = graph_ms(bare_launch(fc, args, kw, packed), calls=calls, reps=reps)
     plain_ms = cuda_ms(lambda: fc.gn_swish_conv3x3_plain(*args, **kw), reps=2)
     # yardstick only: one cuDNN bf16 conv on the pre-activated input
     scale, shift = fc.gn_scale_shift(args[0], args[1], args[2], kw.get("x2"),
@@ -643,7 +688,7 @@ def check_signature(sig, seed):
     a = x_all.to(torch.bfloat16).float() * scale[:, None, None, :] + shift[:, None, None, :]
     a = (a * torch.sigmoid(a)).to(torch.bfloat16).permute(0, 3, 1, 2)
     w = args[3].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    library_ms = cuda_ms(lambda: F.conv2d(a, w, padding=1), reps=5)
+    library_ms = cuda_ms(lambda: F.conv2d(a, w, padding=1), reps=reps)
     del a, x_all, scale, shift
     b_ms, b_by = bound(sig)
     level = f"{sig[0][1]}x{sig[0][2]}" + (" shard" if len(sig) > 10 else "")
@@ -667,37 +712,6 @@ def traced():
         torch.cuda.synchronize()
 
 
-def flash_kernel_ms(fn, pre_pass, reps=5):
-    """Mean device milliseconds of one launch of the flash wrapper's bf16
-    prepass (kernels named to_bf16*) and of its attention kernel (flash_*),
-    from torch.profiler over `reps` calls, and the sessions it took. A
-    session must show `reps` launches of the attention kernel and, where
-    the wrapper has one (``pre_pass``), of the prepass, else none; after
-    TRACE_ATTEMPTS sessions that do not, it raises."""
-    from torch.autograd import DeviceType
-
-    want = {"to_bf16": reps if pre_pass else 0, "flash_": reps}
-    fn()
-    for attempt in range(1, TRACE_ATTEMPTS + 1):
-        with traced() as prof:
-            for _ in range(reps):
-                fn()
-        seen = {"to_bf16": [], "flash_": []}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                for key, times in seen.items():
-                    if key in e.name:
-                        times.append(e.time_range.elapsed_us() / 1e3)
-        counts = {key: len(t) for key, t in seen.items()}
-        if counts == want:
-            out = {key: sum(t) / len(t) if t else 0.0 for key, t in seen.items()}
-            out.update(reps=reps, sessions=attempt)
-            return out
-        log(f"flash: session {attempt} saw {counts} launches, expected {want}")
-    raise AssertionError(f"flash: {TRACE_ATTEMPTS} profiler sessions saw {counts} launches of "
-                         f"{reps} calls, expected {want}")
-
-
 def flash_inputs(sig, seed):
     """Strided q, k, v views of one seeded qkv tensor (f32 or bf16), as the
     UNet makes them, and the scale."""
@@ -710,37 +724,50 @@ def flash_inputs(sig, seed):
     return (*qkv.split(d, dim=-1), 1.0 / math.sqrt(h * d))
 
 
-def flash_split_here(sigs):
-    """flash_kernel_ms of each (sig, seed) in this process."""
+def flash_times(q, k, v, scale, want, rounds=5):
+    """Mean milliseconds of the flash wrapper, of its C entry's bf16
+    prepass alone (0 at the head dims without one) and of its attention
+    body alone, on the scratch the prepass filled: CUDA events around each
+    call, the three interleaved over ``rounds`` rounds and queued behind one
+    untimed call, so that all three see the card in one state (under
+    sustained load its clock falls: whichever was timed second read 5-10 %
+    slower). The body's output must equal ``want``, the wrapper's, bit for
+    bit."""
+    import torch
+
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
 
-    out = []
-    for sig, seed in sigs:
-        q, k, v, scale = flash_inputs(sig, seed)
-        out.append(flash_kernel_ms(lambda: fa.flash_attention(q, k, v, scale),
-                                   sig[0][3] in fa.BF16_HEAD_DIMS))
-        del q, k, v
-    return out
+    out, scratch = fa.buffers(q)
+    fa.run_phases(q, k, v, scale, out, scratch, 3)
+    out.zero_()
+    calls = {"ms": lambda: fa.flash_attention(q, k, v, scale),
+             "prepass_ms": lambda: fa.run_phases(q, k, v, scale, out, scratch, 1),
+             "attention_kernel_ms": lambda: fa.run_phases(q, k, v, scale, out, scratch, 2)}
+    if scratch is None:
+        del calls["prepass_ms"]
+    calls["ms"]()
+    events = []
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((name, start, end))
+    torch.cuda.synchronize()
+    times = {"ms": 0.0, "prepass_ms": 0.0, "attention_kernel_ms": 0.0}
+    for name, start, end in events:
+        times[name] += start.elapsed_time(end) / rounds
+    if not torch.equal(out, want):
+        raise AssertionError("flash: the attention body alone != the wrapper's output")
+    return times
 
 
-def flash_split(sigs):
-    """flash_kernel_ms of each (sig, seed), measured in a process of its own
-    (see TRACE_ATTEMPTS), which loads the flash kernel this run built."""
-    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
-            "print(json.dumps(cs.flash_split_here(json.loads(sys.argv[2]))))")
-    proc = subprocess.run([sys.executable, "-c", code, ROOT, json.dumps(sigs)], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"the flash profile process failed ({proc.returncode}):\n"
-                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
-def check_flash(sig, seed, split):
+def check_flash(sig, seed):
     """Flash kernel vs plain version on the card, on strided q, k, v views
     of one qkv tensor (f32 or bf16) as the UNet makes them, and the four
-    times, the prepass's share (``split``, this signature's flash_split)
-    and the einsum route's time (attention.py's matmul path, in the same
+    times, the prepass's and the attention body's (flash_times) and the
+    einsum route's time (attention.py's matmul path, in the same
     dtype). The library yardstick is one scaled_dot_product_attention on
     bf16 copies."""
     import torch
@@ -757,6 +784,8 @@ def check_flash(sig, seed, split):
     torch.cuda.synchronize()
     if got.dtype != dtype or want.dtype != dtype:
         raise AssertionError(f"flash {sig}: output dtypes {got.dtype}, {want.dtype}")
+    timed = flash_times(q, k, v, scale, got)
+    ms, pre_ms, attn_ms = timed["ms"], timed["prepass_ms"], timed["attention_kernel_ms"]
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     err = {"max_abs": diff.max().item(), "max_rel": diff.max().item() / want.abs().max().item()}
@@ -764,8 +793,6 @@ def check_flash(sig, seed, split):
         raise AssertionError(f"flash {sig}: kernel vs plain {err}")
     del got, want, diff
 
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale), reps=5)
-    pre_ms, attn_ms = split["to_bf16"], split["flash_"]
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale), reps=2)
     einsum_ms = cuda_ms(lambda: attn._einsum_attention(q, k, v, scale), reps=3)
     qb, kb, vb = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
@@ -776,7 +803,6 @@ def check_flash(sig, seed, split):
     return {"signature": f"{dt} B={b} S={s} H={h} D={d}", "errors": {"out": err}, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "prepass_ms": pre_ms, "prepass_share": pre_ms / ms, "attention_kernel_ms": attn_ms,
-            "profiled_reps": split["reps"], "profiler_sessions": split["sessions"],
             "einsum_ms": einsum_ms, "tflops": flops / ms / 1e9}
 
 
@@ -923,8 +949,8 @@ def profile_cube(run_cube, stages):
         torch.cuda.synchronize()
         seconds[name + "_s"] = time.perf_counter() - t0
     del state
-    # the port's kernels the trace saw, beside the launches counted (see
-    # TRACE_ATTEMPTS: a trace late in the process may miss events)
+    # the port's kernels the trace saw, beside the launches counted (a
+    # trace may miss events: see flash_times)
     seen = {FUSED: sum(n for k, (_, n) in by_name.items() if "gn_swish_conv3x3" in k),
             FLASH: sum(n for k, (_, n) in by_name.items() if "flash_" in k)}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_events": seen,
@@ -939,31 +965,11 @@ def run_path(name, config, diffusion, expected, cube, profile):
     from the same x_init, with the kernels and on their plain versions."""
     import torch
 
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
-
     pipe = build_pipeline(config, diffusion)
-    fused_calls, flash_calls = {}, {}
     # the counted main-path run, which also records the launch signatures
-    fc.LAUNCHES = 0
-    fa.LAUNCHES = 0
-    bd.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-    with recording(fused_calls, flash_calls):
-        out = pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(2))
-    torch.cuda.synchronize()
-    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
-    recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
-    log(f"[{name}] recorded {len(fused_calls)} fused and {len(flash_calls)} flash launch "
-        f"signatures, {recorded} calls per cube")
-    if recorded != expected:
-        raise AssertionError(f"[{name}] {recorded} kernel calls per cube, expected {expected}")
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[{name}] main path: {launches} kernel launches, peak memory {peak_gib:.2f} GiB")
-    if launches != expected or bd.LAUNCHES:
-        raise AssertionError(f"[{name}] {launches}, {bd.LAUNCHES} blocked-dot launches in the "
-                             f"main-path run, expected {expected} and none")
+    out, _, peak_gib, launches, fused_calls, flash_calls = counted_run(
+        name, expected,
+        lambda: pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(2)))
     check_cube(name, out, CUBE)
     del out
     times = []
@@ -1174,6 +1180,250 @@ def run_spatial():
     return report, fused_calls, flash_calls
 
 
+def counted_run(name, expected, run):
+    """One main-path run: the launch counts set to 0 and the peak memory
+    reset just before ``run()``, its launch signatures recorded, the exact
+    counts (recorded and counted) read just after. Returns its output,
+    seconds, peak memory, launches and signatures."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+
+    fused_calls, flash_calls = {}, {}
+    fc.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    bd.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(fused_calls, flash_calls):
+        out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
+    recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{name}] main path: {launches} kernel launches ({len(fused_calls)} fused signatures), "
+        f"{secs:.4f} s, peak memory {peak_gib:.2f} GiB")
+    if launches != expected or recorded != expected or bd.LAUNCHES:
+        raise AssertionError(f"[{name}] {launches} launches ({recorded} recorded), "
+                             f"{bd.LAUNCHES} blocked-dot launches, expected {expected}")
+    return out, secs, peak_gib, launches, fused_calls, flash_calls
+
+
+@contextmanager
+def latent_chunk(pipe, chunk):
+    """``pipe``'s model.diffusion.latent_chunk set to ``chunk`` (None: unset)
+    inside the block; the model reads it at every chain."""
+    diff = pipe.ddpm.opt["model"]["diffusion"]
+    saved = diff.get("latent_chunk")
+    diff["latent_chunk"] = chunk
+    try:
+        yield
+    finally:
+        diff["latent_chunk"] = saved
+
+
+def run_chunked():
+    """pavia_x4_r3_chunked: the r3 pipeline with latent_chunk 12 on 4 seeded
+    cubes, from draws made once (x_init by init_from_cond, the noise of each
+    step), then the same batch unchunked from the same draws. Each a counted
+    run (660 and 220 fused launches), its cubes checked, its peak memory
+    read; the two latents and cubes within TOL_UNET (the difference
+    printed); then each timed once more, chunked first. Returns both rows'
+    reports and signatures."""
+    import torch
+
+    config, diffusion, _ = PATHS[R3]
+    pipe = build_pipeline(config, {**diffusion, "latent_chunk": CHUNK})
+    cubes = torch.rand((CHUNK_CUBES, *CUBE[1:]),
+                       generator=torch.Generator(device="cuda").manual_seed(10), device="cuda")
+    with torch.inference_mode():
+        cond = pipe._fold(pipe.encode(cubes))
+        x_init, noise = pipe._chain_draws(cond, pipe.ddpm._sampler()[2],
+                                          torch.Generator(device="cuda").manual_seed(11))
+    del cond
+    if pipe.ddpm._latent_chunk(x_init.shape[0]) != CHUNK:
+        raise AssertionError(f"[{CHUNKED}] {x_init.shape[0]} latents do not chunk by {CHUNK}")
+    runs, outs = {}, {}
+    for name, chunk in ((CHUNKED, CHUNK), (CHUNKED_WHOLE, None)):
+        with latent_chunk(pipe, chunk), \
+                mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
+            out, secs, peak, launches, fused_calls, flash_calls = counted_run(
+                name, CHUNK_PATHS[name],
+                lambda: pipe.super_resolve(cubes, x_init=x_init, noise_seq=noise))
+        check_cube(name, out, cubes.shape)
+        outs[name] = (decode.call_args[0][0], out)
+        runs[name] = ({"config": config, "latent_chunk": chunk, "cubes": CHUNK_CUBES,
+                       "counted_run_seconds": secs, "peak_memory_gib": peak,
+                       "launches": launches}, fused_calls, flash_calls)
+    err = {what: divergence(outs[CHUNKED][i], outs[CHUNKED_WHOLE][i])
+           for i, what in enumerate(("latent", "cube"))}
+    log(f"[{CHUNKED}] chunked ({CHUNK_CUBES * GAE_CFG['G']} latents in chains of {CHUNK}) vs "
+        f"unchunked, from the same draws: {err}")
+    if not all(within(outs[CHUNKED][i], outs[CHUNKED_WHOLE][i], TOL_UNET) for i in (0, 1)):
+        raise AssertionError(f"[{CHUNKED}] chunked vs unchunked: {err}")
+    del outs
+    for name, chunk in ((CHUNKED, CHUNK), (CHUNKED_WHOLE, None)):
+        with latent_chunk(pipe, chunk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.super_resolve(cubes, x_init=x_init, noise_seq=noise)
+            torch.cuda.synchronize()
+        report = runs[name][0]
+        report["seconds"] = time.perf_counter() - t0
+        report["cube_seconds"] = report["seconds"] / CHUNK_CUBES
+        log(f"[{name}] {report['cube_seconds']:.4f} s per cube ({CHUNK_CUBES} cubes in "
+            f"{report['seconds']:.4f} s; the counted run {report['counted_run_seconds']:.4f} s), "
+            f"peak memory {report['peak_memory_gib']:.2f} GiB")
+    runs[CHUNKED][0]["chunked_vs_unchunked"] = err
+    # latent_chunk chunks the chain only (as the JAX package's does): the
+    # GAE encodes and decodes all 36 group images at once. Each stage's
+    # peak above the memory held before it
+    gae_gib = {}
+    for stage, fn in (("encode", lambda: pipe.encode(cubes)),
+                      ("decode", lambda: pipe.decode(pipe._unfold(x_init, CHUNK_CUBES)))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        gae_gib[stage] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    runs[CHUNKED][0]["gae_stage_peak_gib"] = gae_gib
+    log(f"[{CHUNKED}] the GAE on {CHUNK_CUBES} cubes, peak above what is held: {gae_gib} GiB "
+        f"(held before them: {held / 2 ** 30:.2f} GiB)")
+    del pipe, cubes, x_init, noise
+    torch.cuda.empty_cache()
+    return runs
+
+
+def run_tiled():
+    """pavia_x4_tiled: one seeded SR cube of SCENE through the r3 pipeline's
+    super_resolve_tiled(TILE, OVERLAP), a counted run (1320 fused launches),
+    every tile's output kept; the scene's shape, finite, in [0, 1]; the last
+    tile against super_resolve of the same patch drawing from the same
+    generator (the tile's own of split_generator), within TOL_UNET."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.diffusion import split_generator
+
+    config, diffusion, _ = PATHS[R3]
+    pipe = build_pipeline(config, diffusion)
+    scene = torch.rand(SCENE, generator=torch.Generator(device="cuda").manual_seed(12),
+                       device="cuda")
+    tiles, real = [], pipe.super_resolve
+
+    def keep(*args, **kw):
+        tiles.append(real(*args, **kw))
+        return tiles[-1]
+
+    with mock.patch.object(pipe, "super_resolve", keep):
+        out, secs, peak, launches, fused_calls, flash_calls = counted_run(
+            TILED, TILED_PER_SCENE, lambda: pipe.super_resolve_tiled(
+                scene, tile=TILE, overlap=OVERLAP,
+                generator=torch.Generator(device="cuda").manual_seed(13)))
+    check_cube(TILED, out[None], (1, *SCENE))
+    if len(tiles) != len(TILE_ORIGINS):
+        raise AssertionError(f"[{TILED}] {len(tiles)} tiles, expected {len(TILE_ORIGINS)}")
+    k = len(TILE_ORIGINS) - 1
+    y0, x0 = TILE_ORIGINS[k]
+    gen = split_generator(torch.Generator(device="cuda").manual_seed(13), len(TILE_ORIGINS))[k]
+    want = pipe.super_resolve(scene[None, y0:y0 + TILE, x0:x0 + TILE], generator=gen)
+    err = divergence(tiles[k], want)
+    log(f"[{TILED}] {len(tiles)} tiles of {TILE}^2 (overlap {OVERLAP}) over {SCENE}: "
+        f"{secs:.4f} s per scene, peak memory {peak:.2f} GiB; tile {k} at ({y0}, {x0}) vs "
+        f"super_resolve of its patch from the same generator: {err}")
+    if not within(tiles[k], want, TOL_UNET):
+        raise AssertionError(f"[{TILED}] tile {k} vs super_resolve: {err}")
+    report = {"config": config, "scene": SCENE, "tile": TILE, "overlap": OVERLAP,
+              "tiles": len(tiles), "scene_seconds": secs, "peak_memory_gib": peak,
+              "launches": launches, "tile_vs_super_resolve": err}
+    del pipe, scene, out, tiles, want
+    torch.cuda.empty_cache()
+    return report, fused_calls, flash_calls
+
+
+def run_train_remat(dirs, gae_ckpt, train_report):
+    """train_r3_remat: train_r3's configuration with model.unet.remat off and
+    on, each a fresh stage-2 pipeline from seed 0 on the GAE train_gae saved:
+    the counts set to 0, one step's loss and gradients from the same HR
+    crops and the same dropout generator, then REMAT_STEPS steps through
+    train_step_from_hr (median after 2 warm-up) and their peak memory. The
+    remat step's loss and every gradient within atol 1e-4, rtol 1e-3 of
+    the plain step's; no kernel launched."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.train import stage2_driver as drv
+
+    opt = train_config(os.path.join(ROOT, "build", REMAT), dirs, gae_ckpt)
+    size = opt["datasets"]["train"]["l_resolution"] * opt["scale"]
+    hr = torch.rand((opt["datasets"]["train"]["batch_size"], size, size, GAE_CFG["n_colors"]),
+                    generator=torch.Generator(device="cuda").manual_seed(14), device="cuda")
+    steps = {}
+    fc.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    bd.LAUNCHES = 0
+    for remat in (False, True):
+        opt["model"]["unet"]["remat"] = remat
+        pipe = drv.build_pipeline(opt, seed=0)
+        with torch.no_grad():
+            sr = pipe._degrade_fn((size, size), opt["scale"])(hr)
+            batch = {"HR": pipe._fold(pipe._encode(hr)), "SR": pipe._fold(pipe._encode(sr))}
+        dropout = torch.Generator(device="cuda").manual_seed(15)
+        loss = pipe.ddpm.compute_grads(batch, generator=dropout)
+        grads = {n: p.grad.detach().clone() for n, p in pipe.ddpm.unet.named_parameters()}
+        del batch, sr
+        pipe.ddpm.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.train_step_from_hr(hr, scale=opt["scale"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        steps[remat] = {"loss": float(loss), "grads": grads, "step_seconds":
+                        statistics.median(times[2:]), "step_times": times,
+                        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del pipe
+        torch.cuda.empty_cache()
+    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
+    if any(launches.values()):
+        raise AssertionError(f"[{REMAT}] the train steps launched {launches}, expected none")
+    plain, remat = steps[False], steps[True]
+    worst, leaves = 0.0, 0
+    for n, g in plain["grads"].items():
+        d = (remat["grads"][n] - g).abs()
+        worst = max(worst, d.max().item())
+        leaves += not bool((d <= TOL_REMAT_ABS + TOL_REMAT_REL * g.abs()).all())
+    loss_err = abs(remat["loss"] - plain["loss"])
+    report = {"remat_vs_plain": {"loss_plain": plain["loss"], "loss_remat": remat["loss"],
+                                 "loss_abs_err": loss_err, "grad_max_abs_err": worst,
+                                 "grad_leaves_outside": leaves,
+                                 "grad_max_abs": max(g.abs().max().item()
+                                                     for g in plain["grads"].values())},
+              "launches": launches}
+    for key, st in (("plain", plain), ("remat", remat)):
+        report[key] = {k: st[k] for k in ("step_seconds", "step_times", "peak_memory_gib")}
+    report["slowdown"] = remat["step_seconds"] / plain["step_seconds"]
+    log(f"[{REMAT}] remat vs plain step (same weights, crops, dropout generator): "
+        f"{report['remat_vs_plain']}")
+    if leaves or loss_err > TOL_REMAT_ABS + TOL_REMAT_REL * abs(plain["loss"]):
+        raise AssertionError(f"[{REMAT}] remat step vs plain step: {report['remat_vs_plain']}")
+    log(f"[{REMAT}] ms per step (median of {REMAT_STEPS - 2} after 2 warm-up): plain "
+        f"{plain['step_seconds'] * 1e3:.2f}, remat {remat['step_seconds'] * 1e3:.2f} "
+        f"({report['slowdown']:.3f}x); peak memory plain {plain['peak_memory_gib']:.2f} GiB, "
+        f"remat {remat['peak_memory_gib']:.2f} GiB ({TRAIN}'s driver steps: "
+        f"{train_report['peak_memory_gib']:.2f} GiB)")
+    return report
+
+
 def log_profile(name, prof):
     log(f"[{name}] profile: wall {prof['wall_ms']:.1f} ms, device busy "
         f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.4f}, "
@@ -1204,32 +1454,14 @@ def run_bench(profile):
     import torch
 
     from hsi_dmgasr_tpu_torch import bench
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
 
     args = bench.parse_args([])
     model = bench.Bench(args, torch.device("cuda"))
     cube = bench.make_cube(args, model)
     reports = {}
     for name, t_start in ((BENCH, args.t_start), (BENCH_FULL, None)):
-        expected = BENCH_PATHS[name]
-        fused_calls, flash_calls = {}, {}
-        fc.LAUNCHES = 0
-        fa.LAUNCHES = 0
-        bd.LAUNCHES = 0
-        torch.cuda.reset_peak_memory_stats()
-        with recording(fused_calls, flash_calls):
-            out = model.super_resolve(cube, 2, t_start)
-        torch.cuda.synchronize()
-        launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"[{name}] main path: {launches} kernel launches ({len(fused_calls)} fused "
-            f"signatures), peak memory {peak_gib:.2f} GiB")
-        recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
-        if launches != expected or recorded != expected or bd.LAUNCHES:
-            raise AssertionError(f"[{name}] {launches} launches ({recorded} recorded), "
-                                 f"{bd.LAUNCHES} blocked-dot launches, expected {expected}")
+        out, _, peak_gib, launches, fused_calls, flash_calls = counted_run(
+            name, BENCH_PATHS[name], lambda: model.super_resolve(cube, 2, t_start))
         check_cube(name, out, (args.batch, model.size, model.size, model.channels))
         del out
         reports[name] = ({"t_start": t_start, "peak_memory_gib": peak_gib,
@@ -2418,6 +2650,13 @@ def main():
     faces = make_faces(os.path.join(ROOT, "build", "faces"))
     runs[INFER] = run_infer(args.profile, faces)
     report["paths"][SAMPLE_CLI] = run_sample_cli(faces)
+    # the memory modes run after every other path, so that those paths'
+    # peak-memory readings do not depend on the large B=36 and tiled
+    # allocations before them
+    torch.cuda.empty_cache()
+    runs.update(run_chunked())
+    runs[TILED] = run_tiled()
+    report["paths"][REMAT] = run_train_remat(dirs, gae_ckpt, runs[TRAIN][0])
     report["color_correction_max_abs"] = check_color_correction()
     fused_sigs, flash_sigs = {}, {}
     for path, (path_report, fused_calls, flash_calls) in runs.items():
@@ -2447,17 +2686,15 @@ def main():
     extra = [e for e in extra if e[0] not in flash_sigs]
     flash_all = list(flash_sigs.items()) + extra
     torch.cuda.empty_cache()
-    splits = flash_split([(sig, 200 + i) for i, (sig, _) in enumerate(flash_all)])
-    for i, ((sig, counts), split) in enumerate(zip(flash_all, splits)):
-        row = check_flash(sig, 200 + i, split)
+    for i, (sig, counts) in enumerate(flash_all):
+        row = check_flash(sig, 200 + i)
         row["counts"] = counts
         flash_rows.append(row)
         err = row["errors"]["out"]
         log(f"flash {row['signature']:<30} {counts} abs {err['max_abs']:.2e} rel "
             f"{err['max_rel']:.2e} | ms {row['ms']:.3f} ({row['tflops']:.1f} TFLOP/s; prepass "
             f"{row['prepass_ms']:.3f} ms, {row['prepass_share']:.3f} of it; attention kernel "
-            f"{row['attention_kernel_ms']:.3f}; {row['profiled_reps']} profiled launches of each, "
-            f"session {row['profiler_sessions']}) plain "
+            f"{row['attention_kernel_ms']:.3f}) plain "
             f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
             f"einsum {row['einsum_ms']:.3f} bound {row['bound_ms']:.3f} ({row['bound_by']})")
         torch.cuda.empty_cache()

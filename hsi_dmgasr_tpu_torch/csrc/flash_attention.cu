@@ -387,7 +387,8 @@ flash_attention_kernel(const Params p) {
 }
 
 template <int D, typename T>
-int launch(const Params& p, cudaStream_t stream) {
+int launch(const Params& p, int phases, cudaStream_t stream) {
+  if (!(phases & 2)) return 0;  // no prepass at this head dim
   using Sh = Shape<D>;
   constexpr int smem = smem_bytes<D>();
   static_assert(smem <= 232448, "shared memory of one CTA");
@@ -774,10 +775,14 @@ int launch_prepass(const Params& p, cudaStream_t stream) {
 }
 
 template <int D, typename T>
-int launch_wgmma(const Params& p, cudaStream_t stream) {
+int launch_wgmma(const Params& p, int phases, cudaStream_t stream) {
   using Sh = WgShape<D>;
-  int rc = launch_prepass<D, T>(p, stream);
-  if (rc != 0) return rc;
+  if (phases & 1) {
+    const int rc = launch_prepass<D, T>(p, stream);
+    if (rc != 0) return rc;
+  }
+  if (!(phases & 2)) return 0;
+  if (p.scratch == nullptr) return (int)cudaErrorInvalidValue;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   // the scratch as (D, S, 3 * B * H): rows past S zero-fill inside each head
@@ -803,12 +808,12 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
 // the body by head dim (see the note at the top): the bf16 prepass and the
 // wgmma body at D = 128 and 256, the staged mma.sync body at D = 384 and 512
 template <typename T>
-int dispatch(const Params& p, int D, cudaStream_t s) {
+int dispatch(const Params& p, int D, int phases, cudaStream_t s) {
   switch (D) {
-    case 128: return launch_wgmma<128, T>(p, s);
-    case 256: return launch_wgmma<256, T>(p, s);
-    case 384: return launch<384, T>(p, s);
-    case 512: return launch<512, T>(p, s);
+    case 128: return launch_wgmma<128, T>(p, phases, s);
+    case 256: return launch_wgmma<256, T>(p, phases, s);
+    case 384: return launch<384, T>(p, phases, s);
+    case 512: return launch<512, T>(p, phases, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -819,14 +824,17 @@ int dispatch(const Params& p, int D, cudaStream_t s) {
 // bf16 != 0. Strides are in elements; the last (d) stride of q, k and v
 // must be 1, rows 16-byte aligned. D is 128, 256, 384 or 512. At D = 128 and 256, scratch is a
 // (3, B*H, S, D) bf16 buffer the kernel may overwrite (unused, and may be
-// null, at 384 and 512). Returns the cudaError_t of the first launch that
-// failed (0 on success).
+// null, at 384 and 512). phases selects what runs: 1 the prepass alone, 2
+// the attention body alone (on a scratch an earlier prepass filled), 3 both
+// (what the wrapper launches). Returns the cudaError_t of the first launch
+// that failed (0 on success).
 extern "C" int hsi_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     long long qs_b, long long qs_s, long long qs_h,
     long long ks_b, long long ks_s, long long ks_h,
     long long vs_b, long long vs_s, long long vs_h,
-    int B, int S, int H, int D, float scale, int bf16, void* scratch, void* stream) {
+    int B, int S, int H, int D, float scale, int bf16, int phases, void* scratch,
+    void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -847,5 +855,5 @@ extern "C" int hsi_flash_attention(
   p.H = H;
   p.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(p, D, st) : dispatch<float>(p, D, st);
+  return bf16 ? dispatch<__nv_bfloat16>(p, D, phases, st) : dispatch<float>(p, D, phases, st);
 }

@@ -22,6 +22,8 @@ Noise comes from an explicit ``torch.Generator``; ``x_init`` and
 ``noise_seq`` (one noise per step, in the order the steps run) replace
 the drawn Gaussians of a chain, and ``gamma``/``t`` and ``noise`` those
 of the loss, for deterministic replay, e.g. against the JAX package.
+``split_generator`` derives one generator per chain of a sequence (a
+latent chunk, a tile), as ``jax.random.split`` gives one key each.
 
 The denoise function signature is ``denoise_fn(x, noise_level) -> eps``
 where x already carries the conditioning concat.
@@ -42,6 +44,13 @@ from .schedules import DiffusionSchedule
 
 
 _f32 = np.float32
+
+
+def split_generator(generator, n):
+    """``n`` generators on ``generator``'s device, each seeded from one draw
+    of it, in order: the counterpart of ``jax.random.split(key, n)``."""
+    seeds = torch.randint(2 ** 62, (n,), generator=generator, device=generator.device)
+    return [torch.Generator(device=generator.device).manual_seed(s) for s in seeds.tolist()]
 
 
 class GaussianDiffusion:

@@ -8,7 +8,12 @@ mapped to its flax path by the port's own copy of the GAE and SR3/DDPM
 UNet rules of ``hsi_dmgasr_tpu/io/convert_torch.py:torch_key_to_flax_path``,
 and the array is brought back to torch layout (HWIO -> OIHW conv
 kernels, (in, out) -> (out, in) linear kernels, norm ``scale`` ->
-``weight``). A module with BatchNorm (the 'ddpm' UNet) reads its norms
+``weight``). The layers of ``ops/extra.py`` take their JAX leaves too:
+a transposed conv's (k..., in, out) kernel becomes torch's (in, out,
+k...), a 3-D conv's (kd, kh, kw, in, out) torch's (out, in, kd, kh, kw),
+a PReLU's ``alpha`` its ``weight``, and a weight-normed layer's
+``kernel_v``/``kernel_g`` its ``weight_v``/``weight_g`` (g of shape (n,)
+as (n, 1, ...)). A module with BatchNorm (the 'ddpm' UNet) reads its norms
 under ``bn`` where the rules say ``gn``, and its running statistics from
 the ``batch_stats`` collection (``mean``, ``var``), as the JAX package's
 ``state_dict_to_flax`` writes them. ``export_jax_params`` is the
@@ -67,8 +72,8 @@ def torch_key_to_flax_path(key):
     for pat, rep in _RULES:
         k = pat.sub(rep, k)
     parts = k.replace(".", "/").split("/")
-    if parts[-1] == "weight":
-        parts[-1] = "kernel"
+    parts[-1] = {"weight": "kernel", "weight_v": "kernel_v",
+                 "weight_g": "kernel_g"}.get(parts[-1], parts[-1])
     return tuple(parts)
 
 
@@ -89,7 +94,23 @@ def _has_bn(state_dict):
     return any(k.endswith("running_mean") for k in state_dict)
 
 
-def _jax_leaf(key, like, bn):
+def _layer_kinds(module):
+    """state_dict key prefix -> "deconv" or "prelu" for the layers whose
+    leaves the JAX package lays out or names otherwise."""
+    kinds = {}
+    for name, m in module.named_modules():
+        if isinstance(m, (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d)):
+            kinds[name] = "deconv"
+        elif isinstance(m, torch.nn.PReLU):
+            kinds[name] = "prelu"
+    return kinds
+
+
+def _kind(key, kinds):
+    return kinds.get(key.rpartition(".")[0])
+
+
+def _jax_leaf(key, like, bn, kind=None):
     """(collection, flax path) of one state_dict key; None for
     ``num_batches_tracked``, which the JAX package does not keep."""
     if key.endswith("num_batches_tracked"):
@@ -100,15 +121,26 @@ def _jax_leaf(key, like, bn):
     if path[-1] in _STATS:
         return "batch_stats", path[:-1] + (_STATS[path[-1]],)
     if like.ndim == 1 and path[-1] == "kernel":
-        path = path[:-1] + ("scale",)  # a norm's weight
+        # a PReLU's slope, else a norm's weight
+        path = path[:-1] + ("alpha" if kind == "prelu" else "scale",)
     return "params", path
 
 
-def _to_torch_layout(arr, like):
-    if arr.ndim == 4:
-        arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+def _jax_to_torch_axes(ndim, kind):
+    """The permutation taking a JAX kernel of ``ndim`` axes (spatial...,
+    in, out) to torch's layout: (out, in, spatial...), or (in, out,
+    spatial...) for a transposed conv."""
+    io = (ndim - 2, ndim - 1) if kind == "deconv" else (ndim - 1, ndim - 2)
+    return io + tuple(range(ndim - 2))
+
+
+def _to_torch_layout(arr, like, kind=None):
+    if arr.ndim >= 4:
+        arr = arr.transpose(_jax_to_torch_axes(arr.ndim, kind))
     elif arr.ndim == 2:
         arr = arr.T  # (in, out) -> (out, in)
+    elif arr.ndim == 1 and like.ndim > 1:
+        arr = arr.reshape(like.shape)  # a weight norm's g: (n,) -> (n, 1, ...)
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"shape {arr.shape} vs module {tuple(like.shape)}")
     return torch.tensor(np.asarray(arr, dtype=np.float32))
@@ -125,10 +157,11 @@ def load_jax_params(module, flax_params):
             for path, v in _flatten(tree)}
     sd = module.state_dict()
     bn = _has_bn(sd)
+    kinds = _layer_kinds(module)
     used = set()
     new = {}
     for key, like in sd.items():
-        leaf = _jax_leaf(key, like, bn)
+        leaf = _jax_leaf(key, like, bn, _kind(key, kinds))
         if leaf is None:
             new[key] = like
             continue
@@ -136,7 +169,7 @@ def load_jax_params(module, flax_params):
         if path not in flat:
             raise KeyError(f"{key}: no JAX {leaf[0]} at {'/'.join(leaf[1])}")
         used.add(path)
-        new[key] = _to_torch_layout(flat[path], like)
+        new[key] = _to_torch_layout(flat[path], like, _kind(key, kinds))
     unused = sorted("/".join(p) for p in set(flat) - used)
     if unused:
         raise KeyError(f"JAX params without a module key: {unused[:5]}")
@@ -152,14 +185,18 @@ def export_jax_params(module, collection="params"):
     the inverse of ``load_jax_params``."""
     sd = module.state_dict()
     bn = _has_bn(sd)
+    kinds = _layer_kinds(module)
     flat = {}
     for key, v in sd.items():
-        leaf = _jax_leaf(key, v, bn)
+        kind = _kind(key, kinds)
+        leaf = _jax_leaf(key, v, bn, kind)
         if leaf is None or leaf[0] != collection:
             continue
         arr = v.detach().float().cpu().numpy()
-        if arr.ndim == 4:
-            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        if leaf[1][-1] == "kernel_g":
+            arr = arr.reshape(-1)
+        elif arr.ndim >= 4:
+            arr = arr.transpose(np.argsort(_jax_to_torch_axes(arr.ndim, kind)))
         elif arr.ndim == 2:
             arr = arr.T  # (out, in) -> (in, out)
         flat[leaf[1]] = np.ascontiguousarray(arr)

@@ -79,7 +79,7 @@ def _entry():
     fn = lib.hsi_flash_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
@@ -104,26 +104,42 @@ def _check_inputs(q, k, v):
         _check(t.stride(-1) == 1, f"{name} must have unit stride along D")
 
 
-def _launch(q, k, v, scale):
-    global LAUNCHES
+def buffers(q):
+    """The output and, at the bf16 head dims, the prepass scratch that one
+    call on q's shape needs (the scratch None elsewhere)."""
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    scratch = (torch.empty((3, b * h, s, d), dtype=torch.bfloat16, device=q.device)
+               if d in BF16_HEAD_DIMS else None)
+    return out, scratch
+
+
+def run_phases(q, k, v, scale, out, scratch, phases=3):
+    """Run the C entry into ``out`` and ``scratch`` (from ``buffers``):
+    ``phases`` 1 runs the bf16 prepass alone, 2 the attention body alone
+    (on the scratch an earlier prepass filled), 3 both. Counts nothing:
+    ``flash_attention`` is the wrapper."""
     b, s, h, d = q.shape
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.data_ptr() % 16 == 0
                and all(st % per16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1),
                f"{name} rows must be 16-byte aligned")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    scratch = (torch.empty((3, b * h, s, d), dtype=torch.bfloat16, device=q.device)
-               if d in BF16_HEAD_DIMS else None)
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 b, s, h, d, _operand_scale(scale, q.dtype), int(q.dtype == torch.bfloat16),
-                None if scratch is None else scratch.data_ptr(), stream)
+                phases, None if scratch is None else scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
+    return out
+
+
+def _launch(q, k, v, scale):
+    global LAUNCHES
+    out = run_phases(q, k, v, scale, *buffers(q))
     LAUNCHES += 1
     return out
 

@@ -38,7 +38,8 @@ def _which(model_opt):
 def define_G(opt):
     """(unet, diffusion with the TRAIN schedule) from a reference-schema
     config dict. ``model.unet.fuse`` turns on the fused kernels (GroupNorm
-    Blocks only: the 'ddpm' variant's are BatchNorm)."""
+    Blocks only: the 'ddpm' variant's are BatchNorm), ``model.unet.remat``
+    the resblocks' recompute in the backward."""
     model_opt = opt["model"]
     ddpm = _which(model_opt) == "ddpm"
     unet_opt = model_opt["unet"]
@@ -55,6 +56,7 @@ def define_G(opt):
         fuse_blocks=bool(unet_opt.get("fuse")),
         time_embedding="discrete" if ddpm else "continuous",
         norm="batch" if ddpm else "group",
+        remat=bool(unet_opt.get("remat")),
     )
     return unet, diffusion_for_phase(opt, "train")
 

@@ -40,6 +40,14 @@ downsamples are ``conv3x3_spatial``, the upsamples
 runs the single-device block and keeps its own rows. Any unfused Block
 under ``spatial`` raises ``NotImplementedError``, as in the JAX package.
 
+``remat`` (``model.unet.remat``) recomputes each resblock in the backward
+instead of keeping its activations (``torch.utils.checkpoint``, the JAX
+package's ``nn.remat`` of ``ResnetBlocWithAttn``), only while autograd
+records: at inference and on the fused path it changes nothing. The
+recompute replays each block's dropout masks from its generator's state
+at the forward and leaves BatchNorm's running statistics where the
+forward moved them, so a step with remat is the step without it.
+
 Mixed precision follows the JAX package: the module's dtype is its
 weights' (``.to(torch.bfloat16)`` for bf16 inference), the activations
 follow the input's dtype, the norms compute in f32 and round once, and
@@ -50,10 +58,12 @@ from __future__ import annotations
 
 import math
 from contextlib import contextmanager
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
 from ..kernels.fused_conv import gn_swish_conv3x3, pack_conv3x3
@@ -134,18 +144,20 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, num_features, eps=1e-5, momentum=0.9):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
         self.decay = momentum  # flax's momentum: the running statistics' weight
+        self.recomputing = False  # set during a remat recompute: the forward moved them
 
     def forward(self, x):
         xf = x.float()
         if self.training:
             mean = xf.mean((0, 1, 2))
             var = ((xf * xf).mean((0, 1, 2)) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(self.decay * self.running_mean
-                                        + (1 - self.decay) * mean)
-                self.running_var.copy_(self.decay * self.running_var
-                                       + (1 - self.decay) * var)
-                self.num_batches_tracked.add_(1)
+            if not self.recomputing:
+                with torch.no_grad():
+                    self.running_mean.copy_(self.decay * self.running_mean
+                                            + (1 - self.decay) * mean)
+                    self.running_var.copy_(self.decay * self.running_var
+                                           + (1 - self.decay) * var)
+                    self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
@@ -180,6 +192,41 @@ class Dropout(nn.Module):
                                                                 generator=self.generator)
         return torch.where(keep.bool(), x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                                    device=x.device))
+
+
+def remat_contexts(block):
+    """The (forward, recompute) contexts of one ``checkpoint`` of ``block``.
+    checkpoint restores only the global RNGs for its recompute; a Dropout
+    here draws from its own generator, which has moved on by then. So the
+    forward notes each generator's state, the recompute runs from it and
+    then puts the generator back where it was; and the recompute does not
+    move BatchNorm's running statistics a second time."""
+    gens = {id(m.generator): m.generator for m in block.modules()
+            if isinstance(m, Dropout) and m.generator is not None and m.training}
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    at_forward = {}
+
+    @contextmanager
+    def forward():
+        at_forward.update((k, g.get_state()) for k, g in gens.items())
+        yield
+
+    @contextmanager
+    def recompute():
+        now = {k: g.get_state() for k, g in gens.items()}
+        for k, g in gens.items():
+            g.set_state(at_forward[k])
+        for m in norms:
+            m.recomputing = True
+        try:
+            yield
+        finally:
+            for k, g in gens.items():
+                g.set_state(now[k])
+            for m in norms:
+                m.recomputing = False
+
+    return forward(), recompute()
 
 
 class Block(nn.Module):
@@ -407,12 +454,13 @@ class UNet(nn.Module):
                  norm_groups=32, channel_mults=(1, 2, 4, 8, 8), attn_res=(8,),
                  res_blocks=3, dropout=0.0, with_noise_level_emb=True,
                  image_size=128, fuse_blocks=False, fuse_skip="auto", fuse_stats=True,
-                 time_embedding="continuous", norm="group"):
+                 time_embedding="continuous", norm="group", remat=False):
         super().__init__()
         if time_embedding not in ("continuous", "discrete"):
             raise ValueError(f"time_embedding {time_embedding!r}: 'continuous' or 'discrete'")
         self.in_channel = in_channel
         self.fuse_blocks = fuse_blocks
+        self.remat = remat
         self.time_embedding = time_embedding
         self.norm = norm
         discrete = time_embedding == "discrete"
@@ -497,6 +545,13 @@ class UNet(nn.Module):
             raise NotImplementedError(_SPATIAL_UNFUSED)
         mlp = self.time_mlp if self.time_mlp is not None else self.noise_level_mlp
         emb = mlp(time) if mlp is not None else None
+        remat = self.remat and torch.is_grad_enabled() and not fused
+
+        def resblock(layer, h, **kw):
+            if remat:
+                return checkpoint(layer, h, emb, use_reentrant=False,
+                                  context_fn=partial(remat_contexts, layer), **kw)
+            return layer(h, emb, spatial=spatial, **kw)
 
         if spatial is None:
             h = self.downs[0](x)
@@ -507,17 +562,16 @@ class UNet(nn.Module):
         h_stats = None
         for layer in self.downs[1:]:
             if isinstance(layer, ResnetBlocWithAttn):
-                h, h_stats = layer(h, emb, stats_in=h_stats, spatial=spatial)
+                h, h_stats = resblock(layer, h, stats_in=h_stats)
             else:
                 h, h_stats = layer(h, spatial=spatial), None
             feats.append((h, h_stats))
         for layer in self.mid:
-            h, h_stats = layer(h, emb, stats_in=h_stats, spatial=spatial)
+            h, h_stats = resblock(layer, h, stats_in=h_stats)
         for layer in self.ups:
             if isinstance(layer, ResnetBlocWithAttn):
                 x2, x2_stats = feats.pop()
-                h, h_stats = layer(h, emb, x2=x2, stats_in=h_stats, x2_stats=x2_stats,
-                                   spatial=spatial)
+                h, h_stats = resblock(layer, h, x2=x2, stats_in=h_stats, x2_stats=x2_stats)
             else:
                 h, h_stats = layer(h, fused=fused, spatial=spatial), None
         if fused and self.norm == "group":

@@ -17,8 +17,10 @@ Port of ``hsi_dmgasr_tpu/pipeline.py`` (reference sr_gae.py:221-250 and
     ('data', 'space') mesh of ranks (``parallel/``), for latency: band
     groups ride 'data', the latent's height rides 'space', and the fused
     UNet runs on H-shards with halo rows and the whole image's moments.
-
-Tiled inference is not ported yet.
+  * ``super_resolve_tiled``: a scene larger than one shot, as overlapping
+    tiles each super-resolved alone and averaged where they overlap (the
+    online replacement of the reference's offline corner and centre
+    crops, ``data/crop.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from .data.imresize import make_imresize_torch
 from .device import resolve_device
+from .diffusion.gaussian import split_generator
 from .io.convert_torch import load_state_dict
 from .models.gae import GAE
 from .models.networks import init_weights
@@ -227,6 +230,50 @@ class DMGASRPipeline:
             z = gather_rows(z, mesh, "output")
         z = gather(z, mesh, "data", 0, "output")[:n]
         return self.decode(self._unfold(z, b)).clamp(0.0, 1.0)
+
+    @torch.inference_mode()
+    def super_resolve_tiled(self, sr_cube, tile=512, overlap=32, generator=None):
+        """``super_resolve`` of a scene (H, W, C), or (1, H, W, C), larger
+        than one shot: tiles of ``tile``^2 at a stride of tile - overlap,
+        the last tile of each axis moved back to end on the scene's edge,
+        each super-resolved alone and the overlaps averaged on the device
+        (by the count of tiles covering each pixel). A scene no larger than
+        one tile is one ``super_resolve``; a tile is shorter than ``tile``
+        where the scene is. Returns (H, W, C) in [0, 1].
+
+        Tile k (row-major over the origins) draws from the k-th of
+        ``split_generator``'s generators of ``generator`` (the JAX package
+        splits one key per tile)."""
+        x = torch.as_tensor(sr_cube, dtype=torch.float32, device=self.device)
+        if x.ndim == 4:
+            if x.shape[0] != 1:
+                raise ValueError(f"super_resolve_tiled takes one scene, got {x.shape[0]}")
+            x = x[0]
+        H, W, C = x.shape
+        g = generator if generator is not None else self.ddpm.generator
+        stride = tile - overlap
+
+        def origins(dim):
+            # clamped to >= 0, so a dim <= tile gives the one origin 0 (the
+            # slice then ends at the scene's edge); a negative origin would
+            # leave pixels no tile covers
+            return sorted({max(0, min(o, dim - tile))
+                           for o in range(0, max(dim - overlap, 1), stride)})
+
+        single = H <= tile and W <= tile
+        ys, xs = ([0], [0]) if single else (origins(H), origins(W))
+        if single:  # one shot, drawing from the generator itself, as the JAX package's key
+            return self.super_resolve(x[None], generator=g)[0]
+        out = torch.zeros((H, W, C), dtype=torch.float32, device=self.device)
+        count = torch.zeros((H, W, 1), dtype=torch.float32, device=self.device)
+        tiles = [(y0, x0) for y0 in ys for x0 in xs]
+        for (y0, x0), gk in zip(tiles, split_generator(g, len(tiles))):
+            pred = self.super_resolve(x[y0:y0 + tile, x0:x0 + tile][None], generator=gk)[0]
+            out[y0:y0 + tile, x0:x0 + tile] += pred
+            count[y0:y0 + tile, x0:x0 + tile] += 1.0
+        if not bool((count > 0).all()):
+            raise AssertionError("tiling left pixels no tile covers")
+        return out / count
 
     def reconstruct(self, cube):
         """GAE round trip (no diffusion): the stage-1 quality check."""

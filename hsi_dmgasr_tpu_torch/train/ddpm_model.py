@@ -16,7 +16,9 @@ Port of ``hsi_dmgasr_tpu/train/ddpm_model.py`` for both models of
     ``super_resolution`` and ``sample`` (an unconditional model) sample
     with them, through the sampler of ``model.diffusion.sampler``
     ("ancestral", honouring ``t_start``, or "ddim" with ``ddim_steps``),
-    or with ``continous`` return the reference's reverse-process stack;
+    over batch chunks of ``latent_chunk`` latents where the JAX package's
+    rule lets it count, or with ``continous`` return the reference's
+    reverse-process stack;
   * checkpoints in the port's own format (a directory ``I{it}_E{ep}``
     holding one ``state.pt``: weights, Adam, the schedule, the EMA, the
     step) and the JAX package's ``.npz`` export of the eval weights, so a
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..diffusion.gaussian import split_generator
 from ..io.convert_torch import export_jax_params, load_jax_params, load_state_dict, unflatten_npz
 from ..models.networks import define_G, diffusion_for_phase, init_weights
 from .state import EMA, build_optimizer
@@ -172,7 +175,7 @@ class DDPMModel:
     def _sampler(self, unconditional=False):
         """(sampler, ddim_steps, t_start) of ``model.diffusion``, with the
         JAX package's refusal of ``t_start`` outside conditional ancestral
-        sampling. ``latent_chunk`` is not read here."""
+        sampling. ``latent_chunk`` is read by ``_latent_chunk``."""
         diff_opt = self.opt["model"]["diffusion"] or {}
         sampler = diff_opt.get("sampler") or "ancestral"
         if sampler not in ("ancestral", "ddim"):
@@ -182,6 +185,19 @@ class DDPMModel:
             raise ValueError("t_start requires conditional ancestral sampling")
         return sampler, diff_opt.get("ddim_steps"), t_start
 
+    def _latent_chunk(self, n, unconditional=False, continous=False):
+        """The chunk of ``model.diffusion.latent_chunk`` a chain of ``n``
+        latents runs over, or 0 for one chain over the whole batch. As in
+        the JAX package (``train/ddpm_model.py:_get_sampler``) it counts
+        only for a conditional chain that is not ``continous``, over a
+        batch larger than the chunk and divisible by it. The JAX package
+        also drops it under a data mesh of more than one device; this
+        model has no mesh, so that clause never applies here."""
+        chunk = int((self.opt["model"]["diffusion"] or {}).get("latent_chunk") or 0)
+        if unconditional or continous or not (chunk and n > chunk and n % chunk == 0):
+            return 0
+        return chunk
+
     @torch.inference_mode()
     def _run_chain(self, generator, cond=None, shape=None, x_init=None, noise_seq=None,
                    continous=False):
@@ -189,7 +205,14 @@ class DDPMModel:
         it, from pure noise of ``shape``. ``continous`` runs the ancestral
         chain whatever the sampler (as the JAX package does), its x_init
         drawn first from the chain's own generator, and returns the
-        reverse-process stack."""
+        reverse-process stack.
+
+        Under ``latent_chunk`` the chunks run one after another into one
+        output, chunk k drawing from the k-th of ``split_generator``'s
+        generators (the JAX package splits one key per chunk); replayed
+        ``x_init`` (B, ...) and ``noise_seq`` (steps, B, ...) are cut to
+        the chunk along the batch axis, so a chunked chain from given
+        draws is the unchunked chain from the same draws."""
         sampler, ddim_steps, t_start = self._sampler(unconditional=cond is None)
         g = generator if generator is not None else self.generator
         d = self.val_diffusion
@@ -203,11 +226,27 @@ class DDPMModel:
                                       noise_seq=noise_seq, t_start=t_start, generator=g,
                                       return_intermediates=True)
             return self._process_stack(x_init if cond is None else cond, states)
-        if sampler == "ddim":
-            return d.ddim_sample_loop(self._denoise, shape=shape, cond=cond, steps=ddim_steps,
-                                      x_init=x_init, noise_seq=noise_seq, generator=g)
-        return d.sample_loop(self._denoise, cond=cond, shape=shape, x_init=x_init,
-                             noise_seq=noise_seq, t_start=t_start, generator=g)
+
+        def chain(g, cond, x_init, noise_seq):
+            if sampler == "ddim":
+                return d.ddim_sample_loop(self._denoise, shape=shape, cond=cond,
+                                          steps=ddim_steps, x_init=x_init, noise_seq=noise_seq,
+                                          generator=g)
+            return d.sample_loop(self._denoise, cond=cond, shape=shape, x_init=x_init,
+                                 noise_seq=noise_seq, t_start=t_start, generator=g)
+
+        n = cond.shape[0] if cond is not None else shape[0]
+        chunk = self._latent_chunk(n, unconditional=cond is None)
+        if not chunk:
+            return chain(g, cond, x_init, noise_seq)
+        # one output written chunk by chunk: a list concatenated at the end
+        # would hold every chunk twice at the peak
+        out = torch.empty(cond.shape, dtype=torch.float32, device=cond.device)
+        for i, gi in enumerate(split_generator(g, n // chunk)):
+            part = slice(i * chunk, (i + 1) * chunk)
+            out[part] = chain(gi, cond[part], None if x_init is None else x_init[part],
+                              None if noise_seq is None else noise_seq[:, part])
+        return out
 
     @staticmethod
     def _process_stack(start, states):

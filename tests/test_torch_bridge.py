@@ -135,6 +135,10 @@ def test_entry_points_default_to_cuda():
         DeviceSceneCache([np.zeros((8, 8, 3), np.float32)], gt_size=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_imresize_torch((16, 16), output_shape=(4, 4))
+    from hsi_dmgasr_tpu_torch.ops.extra import make_torch_bicubic
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_torch_bicubic((8, 8), (16, 16))
     train_opt = {"path": {"log": "unused"}}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         stage2_driver.train(train_opt)
