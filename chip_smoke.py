@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
 and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives fourteen main paths. Seven are x4 DMGASR on
+checkout. It drives sixteen main paths. Seven are x4 DMGASR on
 Pavia-geometry cubes at full width (UNet inner 64, mults 1,2,4,8,8,
 res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16, n_ovls 4, n_feats
 64, G=9; seeded random weights), on a 512x512x102 cube unless said:
@@ -117,6 +117,33 @@ The fourteenth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
     replayed once per input (4 inputs). 6 x (1 + 4 x 4000) = 96006
     blocked-dot launches.
 
+The fifteenth and sixteenth are the baseline zoo and the 3-D GAN through
+the port's CLIs, at full width with seeded weights and scenes, TF32 off.
+No kernel of the port runs on them (cuDNN convolutions): each reads 0
+launches of all three kernels.
+
+  * baselines_x4: cli.baselines train at its defaults on Pavia's 102
+    bands (the README's baseline command) for sspsr, gelin, mcnet and
+    gdrrn at scale 4 and edsr at scale 2 (the reference pins it): batches
+    of 16 HSTrainingData crops of 128^2 x 102 (64^2 for edsr) from the 8
+    training scenes of make_train_data, with the host's MATLAB-bicubic
+    degradation; SSPSR at n_feats 256 over 17 groups of 8 bands. Cut: 3
+    steps each (--max_steps), then cli.baselines test on the saved
+    checkpoint over 1 val scene (gt_size 64). CEGATSR, which no CLI
+    trains, as one forward at its defaults on 16 x 32^2 x 102. Each
+    model's reference golden state_dict loaded on the card reproduces the
+    golden output (atol 2e-5, GDRRN 5e-5, rtol 1e-4); one step from the
+    trained full-width weights on one item of LR 8^2 x 102 on the card
+    against the CPU's, in f64 (CEGATSR: the forward); the test metrics
+    finite where defined (a band's cross-correlation is 0/0 where the
+    clipped prediction of a barely trained model is constant).
+  * gan3d_x4: cli.gan_train at its defaults (n_bands 31, fis 144, scale
+    4, batch 4) on a seeded stacked-scene .npy of 2 x 31 x 512^2 (18
+    tiles). Cut: 3 steps. Both nets' goldens on the card; the checkpoint
+    back bit for bit; one D step and one G step from the trained nets on
+    one 36^2 tile, on the card against the CPU's in f64 (both losses,
+    every gradient, D's running statistics after the step).
+
 In order:
 
  1. prints the card (nvidia-smi name and power limit) and versions;
@@ -174,7 +201,11 @@ In order:
     cli.eval's PSNR and SSIM finite; seconds per image, forwards/s, one
     forward's ms, peak memory. Then sample_cli_ddpm_16: counts to 0, both
     phases, no launch counted, the files decoded, the val phase on the
-    trained step; seconds per sample, peak memory. Then
+    trained step; seconds per sample, peak memory. Then, after the
+    memory modes, baselines_x4 and gan3d_x4: counts to 0, the CLIs, no
+    launch counted; per model ms per train step (synchronised, the host's
+    data loading outside it) and the CLI's seconds, peak memory, seconds
+    per test scene, the golden and card-vs-CPU checks above. Then
     color_correction_torch on the card against the numpy version;
  4. for each recorded signature (f32 or bf16), on the card at that shape
     (B=9, and B=12 and B=36 for the chunked row, with fewer timing
@@ -207,7 +238,8 @@ loss, backward, Adam; for a stage-2 step: degradation, GAE encode, UNet
 forward + backward, Adam + EMA), into chip_smoke_profile.json beside it.
 train_gae writes its checkpoint under build/train_gae, train_r3 its
 experiment directory under build/train_r3, the CLIs theirs under
-build/infer_sr3_16_128 and build/sample_cli_ddpm_16.
+build/infer_sr3_16_128 and build/sample_cli_ddpm_16, the zoo theirs under
+build/baselines_x4 and build/gan3d_x4.
 """
 
 from __future__ import annotations
@@ -340,6 +372,41 @@ TRAIN_GAE, TRAIN_GAE_STEPS, TRAIN_GAE_BATCH, TRAIN_GAE_EPOCHS = "train_gae", 12,
 # the perceptual term's weight in the card-vs-CPU check (the shipped 1e-3
 # would hide the term under the loss's rtol), and the bands it replays
 TRAIN_GAE_P_WEIGHT, TRAIN_GAE_BANDS = 1.0, (5, 50, 97)
+# the baseline zoo through the port's CLI (cli.baselines) at full width on
+# Pavia's 102 bands, the README's baseline command: each model trained at the
+# CLI's defaults (batch 16 of HSTrainingData crops, HR 32 x scale, Adam 1e-4)
+# for BASELINE_STEPS steps (--max_steps) on make_train_data's 8 scenes, then
+# cli.baselines test on its checkpoint over 1 seeded scene (gt_size 64); edsr
+# at scale 2 (the reference pins it), the others at 4. CEGATSR, which no CLI
+# trains, as one forward at its defaults on a batch of the same size. Each
+# model's reference golden (tests/golden/*_forward_golden.npz) on the card at
+# the JAX tests' tolerance, and one step (CEGATSR: one forward) on the card
+# against the CPU's, in f64, from the trained full-width weights on one item of
+# LR 8^2 x 102. No kernel of the port runs: cuDNN convolutions.
+BASELINES, BASELINE_STEPS, BASELINE_BATCH = "baselines_x4", 3, 16
+BASELINE_MODELS = (("sspsr", 4), ("gelin", 4), ("mcnet", 4), ("gdrrn", 4), ("edsr", 2))
+# golden file -> (its width, the model's inputs, atol); rtol GOLDEN_RTOL
+GOLDEN_WIDTHS = {
+    "sspsr": (dict(n_subs=8, n_ovls=2, n_colors=31, n_blocks=3, n_feats=16, n_scale=4), "x,x", 2e-5),
+    "gelin": (dict(n_feats=16, n_colors=31, n_subs=8, n_ovls=2, blocks=2, scale=4), "x,lms", 2e-5),
+    "mcnet": (dict(scale=4, n_colors=31, n_feats=8), "x", 2e-5),
+    "edsr": (dict(n_resblocks=2, n_feats=16, n_colors=31), "x", 2e-5),
+    "gdrrn": (dict(input_chnl_hsi=31, group=4), "x", 5e-5),
+    "cegatsr": (dict(n_subs=8, n_ovls=2, in_feats=31, n_blocks=1, out_feats=16, n_scale=4),
+                "x,lms", 2e-5),
+}
+GOLDEN_RTOL = 1e-4
+# an f64 gradient leaf whose largest |g| is below GRAD_NOISE x the largest of
+# all leaves is 0 but for rounding; it is held to that floor (grads_against_cpu)
+GRAD_NOISE = 1e-9
+# the 3-D GAN through the port's CLI (cli.gan_train) at its defaults (n_bands
+# 31, fis 144, scale 4, batch 4, Adam 1e-4) on a seeded stacked-scene .npy of
+# GAN3D_SCENES scenes of 31 x GAN3D_HW^2 (9 tiles of 144^2 each), for
+# GAN3D_STEPS steps; both nets' goldens on the card, and one D step and one G
+# step on the card against the CPU's, in f64, from the trained weights on one
+# tile of LR 9^2 (D's running statistics after the step too)
+GAN3D, GAN3D_STEPS, GAN3D_SCENES, GAN3D_HW = "gan3d_x4", 3, 2, 512
+ZOO_PATHS = (BASELINES, GAN3D)  # no kernel of the port: each reads 0 launches of all three
 # flash checks beside the path's own shape: D=128 (two heads) and D=512
 # with a ragged S, both past the 8192-token gate, and pavia_x4_r3's 64^2
 # attention (4096 tokens, D=512), which the gate keeps on the einsum path:
@@ -2576,13 +2643,387 @@ def run_probe():
             "counted_in_python": counted, "rows": rows}
 
 
+# ------------------------------------------------------------ the baseline zoo
+
+
+def no_launches(name, launches):
+    if launches != {FUSED: 0, FLASH: 0, DOT: 0}:
+        raise AssertionError(f"[{name}] launched {launches}, expected no kernel")
+
+
+def kernel_counts():
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+
+    return {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
+
+
+def zero_counts():
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+
+    fc.LAUNCHES = fa.LAUNCHES = bd.LAUNCHES = 0
+
+
+def golden_on_card(name, model_cls, prefix="sd::", kind=None, kw=None, atol=2e-5, **select):
+    """A reference golden's state_dict loaded strictly into the port's
+    model on the card, its forward (eval mode) against the golden output;
+    returns the max abs error. ``select`` picks the golden's input and
+    output keys (x, lms, y)."""
+    import numpy as np
+    import torch
+
+    from hsi_dmgasr_tpu_torch.io.convert_torch import load_state_dict
+
+    file = name.split(":")[0]
+    g = np.load(os.path.join(ROOT, "tests", "golden", f"{file}_forward_golden.npz"))
+    sd = {k.split("::", 1)[1]: g[k] for k in g.files if k.startswith(prefix)}
+    model = load_state_dict(model_cls(**(kw or {})), sd).cuda().eval()
+
+    def nhwc(key):
+        a = g[key][:, 0] if g[key].ndim == 5 else g[key]
+        return torch.from_numpy(np.moveaxis(a, 1, -1).copy()).cuda()
+
+    x = nhwc(select.get("x", "x"))
+    args = (x, nhwc("lms")) if kind == "x,lms" else (x, x) if kind == "x,x" else (x,)
+    with torch.no_grad():
+        y = model(*args).cpu().numpy()
+    want = g[select.get("y", "y")]
+    want = np.moveaxis(want[:, 0] if want.ndim == 5 else want, 1, -1) if want.ndim > 2 else want
+    err = float(np.abs(y - want).max())
+    if not np.all(np.abs(y - want) <= atol + GOLDEN_RTOL * np.abs(want)):
+        raise AssertionError(f"[{name}] golden on the card: max abs err {err:.3e} "
+                             f"(atol {atol}, rtol {GOLDEN_RTOL})")
+    return err
+
+
+def grads_against_cpu(name, run, leaves):
+    """``run(device)`` -> (loss, module) on that device in f64; the loss
+    within TOL_STEP_LOSS and each gradient leaf (``leaves(module)``: name ->
+    tensor) within TOL_STEP_GRAD of that leaf's largest |g|, or of
+    GRAD_NOISE x the largest |g| of all leaves where the leaf's is below
+    that: such a gradient is 0 but for rounding (a conv's bias before a
+    train-mode BatchNorm, which subtracts the batch mean), and its noise
+    differs between the devices."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        loss, module = run(dev)
+        out[dev] = (loss, {n: g.detach().double().cpu() for n, g in leaves(module).items()})
+        log(f"[{name}] the f64 step on {dev}: {time.perf_counter() - t0:.2f} s")
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out["cpu"], out["cuda"]
+    floor = GRAD_NOISE * max(g.abs().max() for g in g_cpu.values())
+    worst = max(((g_gpu[n] - g).abs().max() / g.abs().max().clamp_min(floor)).item()
+                for n, g in g_cpu.items())
+    res = {"dtype": "float64", "loss_cpu": loss_cpu, "loss_card": loss_gpu,
+           "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+           "grad_worst_leaf_rel_err": worst, "leaves": len(g_cpu),
+           "leaves_at_rounding": sorted(n for n, g in g_cpu.items() if g.abs().max() < floor)}
+    if res["loss_rel_err"] > TOL_STEP_LOSS or worst > TOL_STEP_GRAD:
+        raise AssertionError(f"[{name}] card step vs CPU step: {res}")
+    return res
+
+
+def checked_metrics(name, scenes):
+    """Each test scene's metrics finite where they are defined: the
+    cross-correlation of a band is 0/0 where the clipped prediction is
+    constant in that band, as an untrained model's often is (its output
+    below 0 everywhere there). ``scenes``: (x_true, x_pred, metrics) of
+    each scene. Returns the constant bands of each scene."""
+    import numpy as np
+
+    constant = []
+    for x_true, x_pred, qa in scenes:
+        flat = np.asarray(x_pred).reshape(-1, x_pred.shape[-1])
+        bands = int((flat.max(0) == flat.min(0)).sum())
+        constant.append(bands)
+        undefined = {k for k, v in qa.items() if not math.isfinite(v)}
+        if undefined - {"CrossCorrelation"} or (undefined and not bands):
+            raise AssertionError(f"[{name}] test metrics {qa}, {bands} constant bands")
+    return constant
+
+
+def run_baselines(dirs):
+    """The baseline zoo as a user runs it (see BASELINES above). Counts: 0
+    before, none after. Per model: every step's loss finite, ms per train
+    step (synchronised, the host's data loading outside it) and the CLI's
+    seconds per step (with it), peak memory, seconds per test scene, the
+    test metrics finite, the golden on the card, one f64 step on the card
+    against the CPU's. Returns the report."""
+    import numpy as np
+    import torch
+
+    from hsi_dmgasr_tpu_torch.cli import baselines as cli
+    from hsi_dmgasr_tpu_torch.data.hs_datasets import HSTestData
+    from hsi_dmgasr_tpu_torch.models import baselines as pb
+    from hsi_dmgasr_tpu_torch.train.baseline_trainer import BaselineTrainer
+
+    root = os.path.join(ROOT, "build", BASELINES)
+    shutil.rmtree(root, ignore_errors=True)
+    test_dir = os.path.join(root, "test_scene")  # 1 of make_train_data's val scenes
+    os.makedirs(test_dir)
+    shutil.copy(os.path.join(dirs["npy"], sorted(os.listdir(dirs["npy"]))[0]), test_dir)
+    real_qa = cli.quality_assessment
+    c = GAE_CFG["n_colors"]
+    real_step = BaselineTrainer.train_step
+    report = {"models": {}}
+    zero_counts()
+    t_path = time.perf_counter()
+    for name, scale in BASELINE_MODELS:
+        steps = []
+
+        def timed_step(self, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = real_step(self, *a, **kw)
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t, "loss": float(loss)})
+            return loss
+
+        out = os.path.join(root, name)
+        common = ["--model", name, "--n_colors", str(c), "--scale", str(scale)]
+        argv = ["train", *common, "--data", dirs["mat"], "--max_steps", str(BASELINE_STEPS),
+                "--out", out]
+        log(f"[{BASELINES}] python -m hsi_dmgasr_tpu_torch.cli.baselines {' '.join(argv)}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(BaselineTrainer, "train_step", timed_step):
+            trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [st["loss"] for st in steps]
+        if len(steps) != BASELINE_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"[{BASELINES}] {name}: {len(steps)} steps, losses {losses}")
+        scenes = []
+
+        def recorded_qa(x_true, x_pred, *a, **k):
+            scenes.append((x_true, x_pred, real_qa(x_true, x_pred, *a, **k)))
+            return scenes[-1][2]
+
+        t0 = time.perf_counter()
+        with mock.patch.object(cli, "quality_assessment", recorded_qa):
+            qa = cli.main(["test", *common, "--data", test_dir, "--ckpt", out])
+        test_s = time.perf_counter() - t0
+        qa = {k: float(v) for k, v in qa.items()}  # numpy scalars, for the JSON report
+        if len(scenes) != 1:
+            raise AssertionError(f"[{BASELINES}] {name} tested {len(scenes)} scenes")
+        constant = checked_metrics(f"{BASELINES}:{name}", scenes)
+        rep = {"scale": scale, "losses": losses, "step_times": [st["s"] for st in steps],
+               "step_seconds": statistics.median(st["s"] for st in steps[1:]),
+               "cli_train_seconds": cli_s, "peak_memory_gib": peak_gib,
+               "test_seconds_per_scene": test_s, "test": qa, "test_constant_bands": constant,
+               "params": sum(p.numel() for p in trainer.model.parameters())}
+        log(f"[{BASELINES}] {name} x{scale}: {rep['params']} params, losses {losses}; "
+            f"ms per train step (median of steps 2-{BASELINE_STEPS}, {BASELINE_BATCH} crops of "
+            f"{32 * scale}^2 x {c}) {rep['step_seconds'] * 1e3:.2f}; the CLI's train "
+            f"{cli_s:.2f} s (data on the host included); peak memory {peak_gib:.2f} GiB; test "
+            f"{test_s:.3f} s a scene, {qa} ({constant[0]} constant bands)")
+
+        # one f64 step on the card against the CPU's, from the trained weights
+        item = HSTestData(dirs["npy"], n_scale=scale, gt_size=8 * scale)[0]
+        x, lms = cli.inputs(name, {k: v[None] for k, v in item.items()})
+        sd = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+
+        def step(dev, cfg=trainer.config, x=x, lms=lms, hr=item["HR"][None], sd=sd):
+            tr = BaselineTrainer(**cfg, device=dev)
+            tr.model.load_state_dict(sd)
+            tr.model.double()
+            return tr.compute_grads(x, hr, lms).item(), tr.model
+
+        rep["card_vs_cpu_step"] = grads_against_cpu(
+            f"{BASELINES}:{name}", step,
+            lambda m: {n: p.grad for n, p in m.named_parameters()})
+        cls = {"sspsr": pb.SSPSR, "gelin": pb.GELIN, "mcnet": pb.MCNet, "edsr": pb.EDSR,
+               "gdrrn": pb.GDRNN}[name]
+        kw, kind, atol = GOLDEN_WIDTHS[name]
+        rep["golden_max_abs_err"] = golden_on_card(name, cls, kind=kind, kw=kw, atol=atol)
+        log(f"[{BASELINES}] {name}: golden on the card max abs err "
+            f"{rep['golden_max_abs_err']:.3e}; card vs CPU f64 step {rep['card_vs_cpu_step']}")
+        report["models"][name] = rep
+        del trainer
+        torch.cuda.empty_cache()
+
+    # CEGATSR: one forward at its defaults on a batch of the training size
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = pb.CEGATSR(in_feats=c).cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.rand((BASELINE_BATCH, 32, 32, c), generator=gen, device="cuda")
+    lms = torch.nn.functional.interpolate(x.permute(0, 3, 1, 2), scale_factor=4,
+                                          mode="bicubic").permute(0, 2, 3, 1)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = model(x, lms)
+            torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    if tuple(y.shape) != (BASELINE_BATCH, 128, 128, c) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"[{BASELINES}] cegatsr forward {tuple(y.shape)} or non-finite")
+    item = HSTestData(dirs["npy"], n_scale=4, gt_size=32)[0]
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    def forward(dev):
+        m = pb.CEGATSR(in_feats=c)
+        m.load_state_dict(sd)
+        m = m.to(dev).double().eval()
+        to = lambda a: torch.from_numpy(a[None]).to(dev, torch.float64)  # noqa: E731
+        return m(to(item["LR"]), to(item["SR"])), m
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        with torch.no_grad():
+            outs[dev] = forward(dev)[0].cpu()
+    cpu_vs_card = divergence(outs["cuda"], outs["cpu"])
+    if cpu_vs_card["max_rel"] > TOL_STEP_GRAD:
+        raise AssertionError(f"[{BASELINES}] cegatsr card vs CPU forward {cpu_vs_card}")
+    kw, kind, atol = GOLDEN_WIDTHS["cegatsr"]
+    report["models"]["cegatsr"] = {
+        "forward_seconds": fwd_s, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "card_vs_cpu_forward_f64": cpu_vs_card,
+        "golden_max_abs_err": golden_on_card("cegatsr", pb.CEGATSR, kind=kind, kw=kw, atol=atol)}
+    log(f"[{BASELINES}] cegatsr (defaults: n_subs 8, n_ovls 2, out_feats 64, 3 blocks, x4): "
+        f"forward of {BASELINE_BATCH} x 32^2 x {c} in {fwd_s * 1e3:.2f} ms, peak memory "
+        f"{report['models']['cegatsr']['peak_memory_gib']:.2f} GiB; {report['models']['cegatsr']}")
+    del model, x, lms, y
+    report["seconds"] = time.perf_counter() - t_path
+    report["launches"] = launches = kernel_counts()
+    no_launches(BASELINES, launches)
+    log(f"[{BASELINES}] {report['seconds']:.1f} s, kernel launches {launches}")
+    torch.cuda.empty_cache()
+    return report
+
+
+def make_gan_scenes(path):
+    """GAN3D_SCENES seeded stacked scenes (N, 31, H, W) in the uint16 range,
+    smooth spectra over blocky fields, as the ICVL .npy holds them."""
+    import numpy as np
+
+    rng = np.random.RandomState(17)
+    hw = GAN3D_HW
+    fields = rng.rand(GAN3D_SCENES, 6, hw // 16, hw // 16).repeat(16, 2).repeat(16, 3)
+    spectra = rng.rand(6, 31)
+    cube = np.einsum("nkhw,kc->nchw", fields, spectra) / 6 + 0.05 * rng.rand(
+        GAN3D_SCENES, 31, hw, hw)
+    np.save(path, (cube * (2 ** 16 - 1)).astype(np.float32))
+    return path
+
+
+def run_gan3d():
+    """The 3-D GAN as a user trains it (see GAN3D above). Counts: 0 before,
+    none after. Checks every step's losses finite, both goldens on the card,
+    the checkpoint back bit for bit, and one D step then one G step on the
+    card against the CPU's in f64 (both losses, every gradient of both nets
+    within TOL_STEP_GRAD of its leaf's largest, D's running statistics
+    within TOL_STEP_STATS). Times each step (ms, synchronised) and reads
+    the peak memory. Returns the report."""
+    import numpy as np
+    import torch
+
+    from hsi_dmgasr_tpu_torch.cli import gan_train
+    from hsi_dmgasr_tpu_torch.data.scenes import ICVLTiles
+    from hsi_dmgasr_tpu_torch.models import baselines as pb
+    from hsi_dmgasr_tpu_torch.train.gan_trainer import GAN3DTrainer
+
+    root = os.path.join(ROOT, "build", GAN3D)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    data = make_gan_scenes(os.path.join(root, "scenes.npy"))
+    out = os.path.join(root, "gan3d")
+    steps = []
+    real_step = GAN3DTrainer.train_step
+
+    def timed_step(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g_loss, d_loss = real_step(self, *a, **kw)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t, "g": float(g_loss), "d": float(d_loss)})
+        return g_loss, d_loss
+
+    argv = ["--data", data, "--max_steps", str(GAN3D_STEPS), "--out", out]
+    log(f"[{GAN3D}] python -m hsi_dmgasr_tpu_torch.cli.gan_train {' '.join(argv)}")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(GAN3DTrainer, "train_step", timed_step):
+        trainer = gan_train.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    no_launches(GAN3D, launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(steps) != GAN3D_STEPS or not all(math.isfinite(st[k]) for st in steps for k in "gd"):
+        raise AssertionError(f"[{GAN3D}] steps {steps}")
+    fresh = GAN3DTrainer(seed=5, device="cuda")
+    fresh.load(out)
+    for a, b in ((trainer.G, fresh.G), (trainer.D, fresh.D)):
+        if not all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items()):
+            raise AssertionError(f"[{GAN3D}] {out} did not load back bit for bit")
+    report = {"cli": "cli.gan_train " + " ".join(argv), "launches": launches,
+              "step_times": [st["s"] for st in steps],
+              "step_seconds": statistics.median(st["s"] for st in steps[1:]),
+              "losses": [(st["g"], st["d"]) for st in steps], "cli_seconds": cli_s,
+              "peak_memory_gib": peak_gib}
+    log(f"[{GAN3D}] {GAN3D_STEPS} steps (g, d) {report['losses']}; ms per step (D then G, "
+        f"median of steps 2-{GAN3D_STEPS}, 4 tiles of 144^2 x 31) "
+        f"{report['step_seconds'] * 1e3:.2f}; the CLI {cli_s:.2f} s; peak memory "
+        f"{peak_gib:.2f} GiB; the checkpoint back bit for bit")
+
+    report["golden_max_abs_err"] = {
+        "G": golden_on_card("gan3d:G", pb.GAN3DGenerator, "gsd::", kw={"n_bands": 31},
+                            x="g_x", y="g_y"),
+        "D": golden_on_card("gan3d:D", pb.GAN3DDiscriminator, "dsd::", x="d_x", y="d_y")}
+
+    # one D step then one G step, f64, card against CPU, from the trained nets
+    lr_cube, hr = ICVLTiles(data, s=4, fis=36)[0]
+    g_sd = {k: v.detach().cpu() for k, v in trainer.G.state_dict().items()}
+    d_sd = {k: v.detach().cpu() for k, v in trainer.D.state_dict().items()}
+    stats, losses = {}, {}
+
+    def step(dev):
+        """The D step's loss is returned (and held by grads_against_cpu); the
+        G step's loss and D's running statistics are kept for below."""
+        tr = GAN3DTrainer(device=dev)
+        tr.G.load_state_dict(g_sd)
+        tr.D.load_state_dict(d_sd)
+        tr.G.double()
+        tr.D.double()
+        g_loss, d_loss = tr.train_step(lr_cube[None], hr[None])
+        losses[dev] = g_loss.item()
+        stats[dev] = {k: v.detach().double().cpu() for k, v in tr.D.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}
+        return d_loss.item(), tr
+
+    res = grads_against_cpu(
+        GAN3D, step, lambda tr: {**{f"G.{n}": p.grad for n, p in tr.G.named_parameters()},
+                                 **{f"D.{n}": p.grad for n, p in tr.D.named_parameters()}})
+    res["g_loss_rel_err"] = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    res["running_stats_worst_rel_err"] = max(
+        ((stats["cuda"][k] - v).abs().max() / v.abs().max()).item()
+        for k, v in stats["cpu"].items())
+    report["card_vs_cpu_step"] = res
+    if res["g_loss_rel_err"] > TOL_STEP_LOSS or res["running_stats_worst_rel_err"] > TOL_STEP_STATS:
+        raise AssertionError(f"[{GAN3D}] the G step's loss or D's running statistics, card vs "
+                             f"CPU: {res}")
+    log(f"[{GAN3D}] goldens on the card {report['golden_max_abs_err']}; card vs CPU f64 "
+        f"D + G step (36^2 HR tile) {report['card_vs_cpu_step']}")
+    del trainer, fresh
+    torch.cuda.empty_cache()
+    return report
+
+
 def kernel_entry(name, source, replaces, rows, launches):
     """The kernels-line entry: times summed over the counted main-path
     runs (launches of each signature x time per launch), per path too.
     ``launches`` maps each path that runs the kernel to its count."""
     paths = {}
     for path in launches:
-        n = {k: sum(r["counts"][path] * r[k] for r in rows)
+        n = {k: sum(r["counts"].get(path, 0) * r[k] for r in rows)
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         paths[path] = dict(launches=launches[path], **n)
     total = {k: sum(p[k] for p in paths.values())
@@ -2657,6 +3098,9 @@ def main():
     runs.update(run_chunked())
     runs[TILED] = run_tiled()
     report["paths"][REMAT] = run_train_remat(dirs, gae_ckpt, runs[TRAIN][0])
+    torch.cuda.empty_cache()
+    report["paths"][BASELINES] = run_baselines(dirs)
+    report["paths"][GAN3D] = run_gan3d()
     report["color_correction_max_abs"] = check_color_correction()
     fused_sigs, flash_sigs = {}, {}
     for path, (path_report, fused_calls, flash_calls) in runs.items():
@@ -2739,7 +3183,7 @@ def main():
 
     # ---- 6. results
     def launches(kernel):
-        return {p: report["paths"][p]["launches"][kernel] for p in UNET_PATHS}
+        return {p: report["paths"][p]["launches"][kernel] for p in (*UNET_PATHS, *ZOO_PATHS)}
 
     entries = [
         kernel_entry(FUSED, "hsi_dmgasr_tpu_torch/csrc/fused_conv.cu",
@@ -2749,7 +3193,8 @@ def main():
                      launches(FLASH)),
         kernel_entry(DOT, "hsi_dmgasr_tpu_torch/csrc/blocked_dot.cu",
                      "tools/microbench_int8.py:88", dot_rows,
-                     {PROBE: probe["launches"][DOT]}),
+                     {PROBE: probe["launches"][DOT],
+                      **{p: report["paths"][p]["launches"][DOT] for p in ZOO_PATHS}}),
     ]
     for e in entries:
         for path, p in e["paths"].items():

@@ -4,14 +4,19 @@ The port's modules carry the reference's torch state_dict keys, so a
 reference ``.pth`` state_dict loads as it is (``load_state_dict``). A
 param tree of the JAX package (nested dicts of arrays, flax layout) loads
 through ``load_jax_params``: each key of the module's state_dict is
-mapped to its flax path by the port's own copy of the GAE and SR3/DDPM
-UNet rules of ``hsi_dmgasr_tpu/io/convert_torch.py:torch_key_to_flax_path``,
-and the array is brought back to torch layout (HWIO -> OIHW conv
-kernels, (in, out) -> (out, in) linear kernels, norm ``scale`` ->
-``weight``). The layers of ``ops/extra.py`` take their JAX leaves too:
-a transposed conv's (k..., in, out) kernel becomes torch's (in, out,
-k...), a 3-D conv's (kd, kh, kw, in, out) torch's (out, in, kd, kh, kw),
-a PReLU's ``alpha`` its ``weight``, and a weight-normed layer's
+mapped to its flax path by the port's own copy of the rules of
+``hsi_dmgasr_tpu/io/convert_torch.py:torch_key_to_flax_path`` (the GAE,
+SR3/DDPM UNet and GELIN rules, and the model-scoped groups of EDSR,
+MCNet, the 3-D GAN's two nets and CEGATSR, taken by name), and the array
+is brought back to torch layout (HWIO -> OIHW conv kernels, (in, out) ->
+(out, in) linear kernels, norm ``scale`` -> ``weight``; only a leaf named
+``kernel``, ``kernel_v`` or ``depth_kernel`` is laid out anew, so
+CEGATSR's GAT ``W`` and ``a`` cross as they are). Keys of a module the
+reference declares and never runs (CEGATSR's ``BN``) keep the module's
+init, as the JAX package drops them. The layers of ``ops/extra.py`` take
+their JAX leaves too: a transposed conv's (k..., in, out) kernel becomes
+torch's (in, out, k...), a 3-D conv's (kd, kh, kw, in, out) torch's (out,
+in, kd, kh, kw), a PReLU's ``alpha`` its ``weight``, and a weight-normed layer's
 ``kernel_v``/``kernel_g`` its ``weight_v``/``weight_g`` (g of shape (n,)
 as (n, 1, ...)). A module with BatchNorm (the 'ddpm' UNet) reads its norms
 under ``bn`` where the rules say ``gn``, and its running statistics from
@@ -61,15 +66,102 @@ _RULES = [
     # Upsampler Sequential: convs sit at even indices (conv, shuffle, ...)
     (re.compile(r"\bupsample\.(\d+)\."),
      lambda m: f"upsample/conv_{int(m.group(1)) // 2}/"),
+    # --- SSPSR with use_share=False: one BranchUnit per group (SSPSR.py)
+    (re.compile(r"^branch\.(\d+)\."), r"branch_\1/"),
+    # --- GELIN (GELIN.py:100-276)
+    (re.compile(r"^branch\.body\.(\d+)\.body\.0\."), r"branch/body_\1/sc/"),
+    (re.compile(r"^branch\.body\.(\d+)\.body\.1\."), r"branch/body_\1/ca/"),
+    (re.compile(r"\bsc/f1\.0\."), "sc/f1/"),
+    (re.compile(r"\bsc/f2\.1\."), "sc/f2/"),
+    (re.compile(r"\bsc/f4\.0\."), "sc/f4/"),
+    (re.compile(r"\bca/body\.0\."), "ca/conv0/"),
+    (re.compile(r"\bca/body\.2\."), "ca/conv1/"),
+    (re.compile(r"\bca/conv_du\.1\."), "ca/du0/"),
+    (re.compile(r"\bca/conv_du\.3\."), "ca/du1/"),
+    (re.compile(r"\bTrunkUp\.0\."), "trunk_up/"),
+    (re.compile(r"\bTrunkUp\.1\."), "trunk_act/"),
+    (re.compile(r"\bMultiUp\.0\."), "multi0/"),
+    (re.compile(r"\bMultiUp\.1\."), "multi1/"),
+    (re.compile(r"\bMultiUp\.2\."), "multi_up/"),
+    (re.compile(r"\bMultiUp\.3\."), "multi_act/"),
+    (re.compile(r"\berror_resblock\.0\."), "error/"),
 ]
 
+# model-scoped rule groups, applied before the common rules when a model is
+# named (``load_jax_params(..., model=<name>)``): they keep generic names
+# like ``tail.1`` of one model from another's paths
+_MODEL_RULES = {
+    # EDSR (GAE/EDSR.py:54-104); the Upsampler's convs at even indices
+    "edsr": [
+        (re.compile(r"^head\.0\."), "head/"),
+        (re.compile(r"^body\.(\d+)\.body\.0\."), r"body_\1/conv0/"),
+        (re.compile(r"^body\.(\d+)\.body\.2\."), r"body_\1/conv1/"),
+        (re.compile(r"^body\.(\d+)\.(weight|bias)$"), r"body_tail/\2"),
+        (re.compile(r"^tail\.0\.(\d+)\."),
+         lambda m: f"upsample/conv_{int(m.group(1)) // 2}/"),
+        (re.compile(r"^tail\.1\."), "tail/"),
+    ],
+    # MCNet (GAE/MCNet.py): weight-normed convs and module renames
+    "mcnet": [
+        (re.compile(r"^SSRM(\d)\."), lambda m: f"ssrm_{int(m.group(1)) - 1}/"),
+        (re.compile(r"\bBlock(\d)\.(\d+)\.conv\.(\d+)\.conv\."),
+         lambda m: f"block{m.group(1)}_{m.group(2)}/c{m.group(3)}/"),
+        (re.compile(r"\bConv\.conv\.(\d+)\.conv\."), lambda m: f"conv_out/c{m.group(1)}/"),
+        (re.compile(r"\breduceF\.conv\."), "reduceF/"),
+        (re.compile(r"\bconv([123])\.0\."), r"conv\1/c0/"),
+        (re.compile(r"\bconv([123])\.2\."), r"conv\1/c1/"),
+        (re.compile(r"^tail\.0\."), "tail_up/"),
+        (re.compile(r"^tail\.1\."), "tail_conv/"),
+    ],
+    # the 3-D GAN's generator (GAE/net.py:75-131)
+    "gan3d_g": [
+        (re.compile(r"^conv_1\.0\."), "conv1/"),
+        (re.compile(r"^attn_(\d)\.conv_1\.0\."), r"attn\1/conv1a/"),
+        (re.compile(r"^attn_(\d)\.conv_1\.2\."), r"attn\1/conv1b/"),
+        (re.compile(r"^attn_(\d)\.conv_2\.0\."), r"attn\1/fc0/"),
+        (re.compile(r"^attn_(\d)\.conv_2\.2\."), r"attn\1/fc1/"),
+        (re.compile(r"^conv_2\.0\."), "conv2/"),
+        (re.compile(r"^conv_3\."), "conv3/"),
+        (re.compile(r"^conv_4\.0\."), "conv4/"),
+        (re.compile(r"^conv_5\."), "conv5/"),
+    ],
+    # the 3-D GAN's discriminator (GAE/net.py:134-185): Sequential index ->
+    # conv/BatchNorm names (pads and activations hold the other indices)
+    "gan3d_d": [
+        (re.compile(rf"^conv\.{i}\."), f"{name}/")
+        for i, name in ((0, "c1"), (3, "c2"), (4, "b2"), (6, "c3"), (7, "b3"), (10, "c4"),
+                        (11, "b4"), (13, "c5"), (14, "b5"), (16, "c6"), (17, "b6"))
+    ] + [
+        (re.compile(r"^linera\.0\."), "fc0/"),
+        (re.compile(r"^linera\.2\."), "fc1/"),
+    ],
+    # CEGATSR (GAE/CEGATSR.py)
+    "cegatsr": [
+        (re.compile(r"^branch\.head\.head\.head\."), "branch/head/head/"),
+        (re.compile(r"^branch\.head\.last\.last\."), "branch/head/last/"),
+        (re.compile(r"^branch\.head\.body\."), "branch/head/body/"),
+        (re.compile(r"\bdepth_conv\.weight$"), "depth_kernel"),
+        (re.compile(r"\bdepth_conv\.bias$"), "depth_bias"),
+        (re.compile(r"^trunk\.head\."), "trunk_head/"),
+        (re.compile(r"^trunk\.body\."), "trunk_body/"),
+        (re.compile(r"^trunk\.upsample\.(\d+)\."),
+         lambda m: f"trunk_up/conv_{int(m.group(1)) // 2}/"),
+    ],
+}
 
-def torch_key_to_flax_path(key):
+# keys of modules the reference declares and its forward never runs
+# (CEGATSR's CNNUnit.BN): the JAX package has no leaf for them, so
+# ``load_jax_params`` leaves them at the module's init
+_DROP_KEYS = re.compile(r"\bBN\.(weight|bias|running_mean|running_var|num_batches_tracked)$")
+
+
+def torch_key_to_flax_path(key, model=None):
     """One torch state_dict key -> its flax param path tuple, e.g.
     ``Encoder.branch.body.net.0.spa.body.0.weight`` ->
-    ``('encoder','branch','body','net_0','spa','conv0','kernel')``."""
+    ``('encoder','branch','body','net_0','spa','conv0','kernel')``.
+    ``model`` names a rule group of ``_MODEL_RULES``, applied first."""
     k = key
-    for pat, rep in _RULES:
+    for pat, rep in _MODEL_RULES.get(model, []) + _RULES:
         k = pat.sub(rep, k)
     parts = k.replace(".", "/").split("/")
     parts[-1] = {"weight": "kernel", "weight_v": "kernel_v",
@@ -89,9 +181,10 @@ _STATS = {"running_mean": "mean", "running_var": "var"}
 
 
 def _has_bn(state_dict):
-    """Whether a state_dict holds BatchNorm statistics (the JAX package's
-    ``has_bn``: then every norm is under ``bn``, not ``gn``)."""
-    return any(k.endswith("running_mean") for k in state_dict)
+    """Whether a state_dict holds BatchNorm statistics outside the dropped
+    keys (the JAX package's ``has_bn``: then every norm is under ``bn``,
+    not ``gn``)."""
+    return any(k.endswith("running_mean") and not _DROP_KEYS.search(k) for k in state_dict)
 
 
 def _layer_kinds(module):
@@ -110,12 +203,13 @@ def _kind(key, kinds):
     return kinds.get(key.rpartition(".")[0])
 
 
-def _jax_leaf(key, like, bn, kind=None):
+def _jax_leaf(key, like, bn, kind=None, model=None):
     """(collection, flax path) of one state_dict key; None for
-    ``num_batches_tracked``, which the JAX package does not keep."""
-    if key.endswith("num_batches_tracked"):
+    ``num_batches_tracked`` and the dropped keys, which the JAX package
+    does not keep."""
+    if key.endswith("num_batches_tracked") or _DROP_KEYS.search(key):
         return None
-    path = torch_key_to_flax_path(key)
+    path = torch_key_to_flax_path(key, model)
     if bn:
         path = tuple("bn" if p == "gn" else p for p in path)
     if path[-1] in _STATS:
@@ -134,10 +228,17 @@ def _jax_to_torch_axes(ndim, kind):
     return io + tuple(range(ndim - 2))
 
 
-def _to_torch_layout(arr, like, kind=None):
-    if arr.ndim >= 4:
+# the leaves whose layout differs between the packages: conv kernels (and a
+# weight norm's direction, CEGATSR's depthwise kernel) and linear kernels.
+# Any other leaf (CEGATSR's GAT ``W`` (in, out) and ``a`` (2F, 1)) crosses
+# as it is.
+_KERNELS = ("kernel", "kernel_v", "depth_kernel")
+
+
+def _to_torch_layout(arr, like, leaf, kind=None):
+    if arr.ndim >= 4 and leaf in _KERNELS:
         arr = arr.transpose(_jax_to_torch_axes(arr.ndim, kind))
-    elif arr.ndim == 2:
+    elif arr.ndim == 2 and leaf == "kernel":
         arr = arr.T  # (in, out) -> (out, in)
     elif arr.ndim == 1 and like.ndim > 1:
         arr = arr.reshape(like.shape)  # a weight norm's g: (n,) -> (n, 1, ...)
@@ -146,11 +247,14 @@ def _to_torch_layout(arr, like, kind=None):
     return torch.tensor(np.asarray(arr, dtype=np.float32))
 
 
-def load_jax_params(module, flax_params):
+def load_jax_params(module, flax_params, model=None):
     """Copy a JAX variable tree (``{'params': tree[, 'batch_stats': tree]}``
-    or the params tree itself) into ``module``. Every module key must find
-    its leaf and every leaf must be used (``num_batches_tracked`` keeps the
-    module's value); returns the module."""
+    or the params tree itself) into ``module``, the keys mapped with the
+    rule group ``model`` of ``_MODEL_RULES`` (``"edsr"``, ``"mcnet"``,
+    ``"gan3d_g"``, ``"gan3d_d"``, ``"cegatsr"``) when given. Every module
+    key must find its leaf and every leaf must be used
+    (``num_batches_tracked`` and the dropped keys keep the module's value);
+    returns the module."""
     trees = ({c: flax_params[c] for c in ("params", "batch_stats") if c in flax_params}
              if "params" in flax_params else {"params": flax_params})
     flat = {(c,) + path: np.asarray(v) for c, tree in trees.items()
@@ -161,7 +265,7 @@ def load_jax_params(module, flax_params):
     used = set()
     new = {}
     for key, like in sd.items():
-        leaf = _jax_leaf(key, like, bn, _kind(key, kinds))
+        leaf = _jax_leaf(key, like, bn, _kind(key, kinds), model)
         if leaf is None:
             new[key] = like
             continue
@@ -169,7 +273,7 @@ def load_jax_params(module, flax_params):
         if path not in flat:
             raise KeyError(f"{key}: no JAX {leaf[0]} at {'/'.join(leaf[1])}")
         used.add(path)
-        new[key] = _to_torch_layout(flat[path], like, _kind(key, kinds))
+        new[key] = _to_torch_layout(flat[path], like, path[-1], _kind(key, kinds))
     unused = sorted("/".join(p) for p in set(flat) - used)
     if unused:
         raise KeyError(f"JAX params without a module key: {unused[:5]}")
@@ -177,27 +281,29 @@ def load_jax_params(module, flax_params):
     return module
 
 
-def export_jax_params(module, collection="params"):
+def export_jax_params(module, collection="params", model=None):
     """``module``'s weights (``collection="params"``) or BatchNorm running
     statistics (``"batch_stats"``) as ``{flax path tuple: f32 numpy
     array}``, the layouts of the JAX package (OIHW -> HWIO conv kernels,
-    (out, in) -> (in, out) linear kernels, norm ``weight`` -> ``scale``):
-    the inverse of ``load_jax_params``."""
+    (out, in) -> (in, out) linear kernels, norm ``weight`` -> ``scale``),
+    the paths mapped with the rule group ``model``: the inverse of
+    ``load_jax_params``."""
     sd = module.state_dict()
     bn = _has_bn(sd)
     kinds = _layer_kinds(module)
     flat = {}
     for key, v in sd.items():
         kind = _kind(key, kinds)
-        leaf = _jax_leaf(key, v, bn, kind)
+        leaf = _jax_leaf(key, v, bn, kind, model)
         if leaf is None or leaf[0] != collection:
             continue
         arr = v.detach().float().cpu().numpy()
-        if leaf[1][-1] == "kernel_g":
+        name = leaf[1][-1]
+        if name == "kernel_g":
             arr = arr.reshape(-1)
-        elif arr.ndim >= 4:
+        elif arr.ndim >= 4 and name in _KERNELS:
             arr = arr.transpose(np.argsort(_jax_to_torch_axes(arr.ndim, kind)))
-        elif arr.ndim == 2:
+        elif arr.ndim == 2 and name == "kernel":
             arr = arr.T  # (out, in) -> (in, out)
         flat[leaf[1]] = np.ascontiguousarray(arr)
     return flat

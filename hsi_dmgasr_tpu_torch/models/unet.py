@@ -132,12 +132,14 @@ class GroupNorm(nn.GroupNorm):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm over (N, H, W) of NHWC tensors with flax's rules (the JAX
-    package's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``), computed in
-    f32 and rounded once to x.dtype. In train mode it normalises with the
-    batch's mean and its biased variance E[x^2] - E[x]^2 (clipped at 0),
-    and moves the running statistics by running = 0.9 running + 0.1 batch
-    with that same biased variance (torch's own rule would take the
+    """BatchNorm over every axis but the last of channels-last tensors
+    (N, H, W of NHWC; N, D, H, W of NDHWC, the 3-D GAN's discriminator) with
+    flax's rules (the JAX package's ``nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5)``), computed in f32 (f64 for an f64 input) and rounded
+    once to x.dtype. In train mode it normalises with the batch's mean and
+    its biased variance E[x^2] - E[x]^2 (clipped at 0), and moves the
+    running statistics by running = 0.9 running + 0.1 batch with that same
+    biased variance (torch's own rule would take the
     unbiased one); in eval mode it normalises with the running statistics.
     The buffers keep torch's names, so reference state_dicts load."""
 
@@ -147,10 +149,11 @@ class BatchNorm(nn.BatchNorm2d):
         self.recomputing = False  # set during a remat recompute: the forward moved them
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # f32, or f64 for f64
         if self.training:
-            mean = xf.mean((0, 1, 2))
-            var = ((xf * xf).mean((0, 1, 2)) - mean * mean).clamp_min(0.0)
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
             if not self.recomputing:
                 with torch.no_grad():
                     self.running_mean.copy_(self.decay * self.running_mean
@@ -160,7 +163,8 @@ class BatchNorm(nn.BatchNorm2d):
                     self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
+        y = ((xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype))
+             + self.bias.to(xf.dtype))
         return y.to(x.dtype)
 
 

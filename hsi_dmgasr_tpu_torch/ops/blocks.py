@@ -6,7 +6,9 @@ JAX package; weights keep torch's layout (OIHW convs, (out, in) linears)
 and the module names give the reference's state_dict keys (``head``,
 ``body.net.N.spa.body.0``, ``spc.body.3.conv_du.0``, ...), so the
 shipped ``.pth`` files load as they are. The JAX package's ``Dense`` is
-``nn.Linear`` here, and its ``leaky_relu`` is ``nn.LeakyReLU(0.01)``.
+``nn.Linear`` here, and its ``leaky_relu`` is ``nn.LeakyReLU(0.01)``. A
+conv sees the NCHW view of its NHWC input, whose channels-last strides
+cuDNN takes as they are, and hands back the NHWC view of its output.
 """
 
 from __future__ import annotations
@@ -16,21 +18,29 @@ import math
 import torch
 from torch import nn
 
+from .extra import _weight, _weight_norm
+
 
 class Conv2d(nn.Conv2d):
     """torch.nn.Conv2d on NHWC tensors, padding k//2 * dilation (the
     reference's ``default_conv``, common.py:19-32). As in the JAX
     package, the kernel is cast to x.dtype and the bias is added in the
-    output's dtype, so bf16 weights serve an f32 input and the reverse."""
+    output's dtype, so bf16 weights serve an f32 input and the reverse.
+    ``groups`` is torch's (GDRRN's grouped and CEGATSR's depthwise convs);
+    ``weight_norm`` keeps ``weight_g``/``weight_v`` as
+    torch.nn.utils.weight_norm does (MCNet's 2-D convs, ``ops/extra.py``)."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 bias=True, dilation=1):
+                 bias=True, dilation=1, groups=1, weight_norm=False):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=(kernel_size // 2) * dilation,
-                         dilation=dilation, bias=bias)
+                         dilation=dilation, groups=groups, bias=bias)
+        self.weight_norm = weight_norm
+        if weight_norm:
+            _weight_norm(self)
 
     def forward(self, x):
-        y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), None)
+        y = self._conv_forward(x.permute(0, 3, 1, 2), _weight(self).to(x.dtype), None)
         if self.bias is not None:
             y.add_(self.bias.to(y.dtype)[:, None, None])
         return y.permute(0, 2, 3, 1).contiguous()

@@ -346,3 +346,53 @@ def test_captured_chain_matches_eager(dev, dtype):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, microbench_int8.run_chain(dot, x2, 3))
+
+
+# ------------------------------------------------------- the baseline zoo
+# Each baseline at its golden's width (tests/golden/*_forward_golden.npz,
+# the reference state_dict loaded strictly) on the card against the same
+# forward on the CPU, TF32 off: cuDNN's f32 convolutions in another order,
+# at the JAX tests' atol 2e-5, rtol 1e-4 (GDRRN 5e-5); no kernel of the
+# port is launched.
+
+BASELINE_GOLDENS = ["sspsr", "gelin", "mcnet", "edsr", "gdrrn", "cegatsr", "gan3d_g", "gan3d_d"]
+
+
+def _baseline(name):
+    """(model, inputs as NHWC tensors) of a golden."""
+    import os
+
+    from hsi_dmgasr_tpu_torch.io.convert_torch import load_state_dict
+    from hsi_dmgasr_tpu_torch.models import baselines as pb
+
+    file = "gan3d" if name.startswith("gan3d") else name
+    g = np.load(os.path.join(os.path.dirname(__file__), "golden", f"{file}_forward_golden.npz"))
+    prefix = {"gan3d_g": "gsd::", "gan3d_d": "dsd::"}.get(name, "sd::")
+    sd = {k.split("::", 1)[1]: g[k] for k in g.files if k.startswith(prefix)}
+    nhwc = lambda a: torch.from_numpy(np.moveaxis(a, 1, -1).copy())  # noqa: E731
+    make = {"sspsr": lambda: pb.SSPSR(8, 2, 31, n_blocks=3, n_feats=16, n_scale=4),
+            "gelin": lambda: pb.GELIN(16, 31, n_subs=8, n_ovls=2, blocks=2, scale=4),
+            "mcnet": lambda: pb.MCNet(4, 31, 8), "edsr": lambda: pb.EDSR(2, 16, 31),
+            "gdrrn": lambda: pb.GDRNN(31, 4),
+            "cegatsr": lambda: pb.CEGATSR(8, 2, 31, n_blocks=1, out_feats=16, n_scale=4),
+            "gan3d_g": lambda: pb.GAN3DGenerator(31), "gan3d_d": pb.GAN3DDiscriminator}
+    model = load_state_dict(make[name](), sd).eval()
+    if name == "gan3d_g":
+        return model, (nhwc(g["g_x"][:, 0]),)
+    if name == "gan3d_d":
+        return model, (nhwc(g["d_x"][:, 0]),)
+    x = nhwc(g["x"])
+    if name == "sspsr":
+        return model, (x, x)
+    return model, (x, nhwc(g["lms"])) if "lms" in g.files else (x,)
+
+
+@pytest.mark.parametrize("name", BASELINE_GOLDENS)
+def test_baseline_forward_on_the_card_matches_the_cpu(dev, name):
+    model, args = _baseline(name)
+    launches = (fused_conv.LAUNCHES, flash_attention.LAUNCHES, blocked_dot.LAUNCHES)
+    with torch.no_grad():
+        want = model(*args)
+        got = model.to(dev)(*(a.to(dev) for a in args)).cpu()
+    assert (fused_conv.LAUNCHES, flash_attention.LAUNCHES, blocked_dot.LAUNCHES) == launches
+    torch.testing.assert_close(got, want, atol=5e-5 if name == "gdrrn" else 2e-5, rtol=1e-4)
