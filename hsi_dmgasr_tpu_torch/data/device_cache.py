@@ -24,6 +24,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils.augment import data_augmentation
+from ..utils.profiling import traced
 
 
 def augment_index(size):
@@ -65,6 +66,7 @@ class DeviceSceneCache:
             for s in scenes])
         self._index = torch.as_tensor(augment_index(self.gt_size), device=self.device)
 
+    @traced("train.crops")
     def sample(self, generator, batch_size):
         """(batch_size, gt_size, gt_size, C) HR crops on the device, drawn
         from ``generator`` (a generator of the cache's device)."""

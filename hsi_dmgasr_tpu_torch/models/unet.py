@@ -72,6 +72,7 @@ from ..ops.blocks import Conv2d
 from ..ops.fused_up import up2_conv3x3
 from ..parallel.spatial import (conv3x3_spatial, exchange_halo, gather_rows,
                                 up2_conv3x3_spatial)
+from ..utils.profiling import traced
 
 _SPATIAL_UNFUSED = ("spatial sharding requires the fused inference path "
                     "(fuse_blocks, GroupNorm, eval mode)")
@@ -417,6 +418,7 @@ class SelfAttention(nn.Module):
         self.qkv = Conv2d(in_channel, in_channel * 3, 1, bias=False)
         self.out = Conv2d(in_channel, in_channel, 1)
 
+    @traced("unet.attention")
     def forward(self, x, spatial=None):
         """Under ``spatial`` x is an H-shard: the whole image is gathered,
         the single-device block runs on it on every rank, and the rank
@@ -476,6 +478,7 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = Conv2d(dim, dim, 3)
 
+    @traced("unet.up_conv")
     def forward(self, x, fused=False, spatial=None):
         if spatial is not None:
             return up2_conv3x3_spatial(x, self.conv.weight.permute(2, 3, 1, 0), self.conv.bias,
@@ -581,6 +584,7 @@ class UNet(nn.Module):
             for b, f in zip(blocks, saved[1]):
                 b.fuse = f
 
+    @traced("unet.forward")
     def forward(self, x, time, spatial=None):
         """x: (B, H, W, in_channel) NHWC; time: the (B, 1) noise level, or
         with the discrete embedding the (B,) integer timestep. ``spatial``:

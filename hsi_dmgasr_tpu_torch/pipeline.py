@@ -39,6 +39,7 @@ from .models.networks import init_weights
 from .parallel.mesh import gather
 from .parallel.spatial import gather_rows
 from .train.ddpm_model import DDPMModel
+from .utils.profiling import span, traced
 
 
 class DMGASRPipeline:
@@ -71,11 +72,13 @@ class DMGASRPipeline:
         x = torch.as_tensor(cube, dtype=torch.float32, device=self.device)
         return (self.gae.encode(x) - self.latent_shift) * self.latent_scale
 
+    @traced("gae.encode")
     @torch.inference_mode()
     def encode(self, cube):
         """(B, H, W, C) cube -> (B, G, h, w, 3) latents."""
         return self._encode(cube)
 
+    @traced("gae.decode")
     @torch.inference_mode()
     def decode(self, z):
         return self.gae.decode(z / self.latent_scale + self.latent_shift)
@@ -109,10 +112,11 @@ class DMGASRPipeline:
         tensor on the device."""
         return torch.as_tensor(x, device=self.device).float()
 
+    @traced("train.step")
     def train_step_from_hr(self, hr, scale=4, generator=None, per_group=False):
         """Training step from HR crops only; SR derived on the device."""
         hr = self._to_f32(hr)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.degrade"):
             sr = self._degrade_fn((hr.shape[1], hr.shape[2]), scale)(hr)
         return self.train_step({"HR": hr, "SR": sr}, generator=generator, per_group=per_group)
 
@@ -120,7 +124,7 @@ class DMGASRPipeline:
         """One diffusion update from a cube batch {'HR','SR'} (NHWC). The
         GAE stays frozen; its latents are made under no_grad (not in
         inference mode, whose tensors autograd cannot save)."""
-        with torch.no_grad():
+        with torch.no_grad(), span("train.encode"):
             z_hr = self._encode(self._to_f32(batch["HR"]))
             z_sr = self._encode(self._to_f32(batch["SR"]))
         if per_group:
@@ -133,6 +137,7 @@ class DMGASRPipeline:
 
     # --------------------------------------------------------- inference
 
+    @traced("sr.cube")
     def super_resolve(self, sr_cube, generator=None, x_init=None, noise_seq=None):
         """Full DMGASR inference on bicubic-upsampled LR cubes (B, H, W, C)
         in [0, 1]. ``x_init``/``noise_seq`` (folded latent shape) replay

@@ -57,6 +57,7 @@ from ..models.networks import define_G, diffusion_for_phase, init_weights
 from ..parallel import data_parallel as dp
 from ..parallel.mesh import data_parallel_mesh, gather, local_rows, replicate
 from ..parallel.multihost import get_world_size
+from ..utils.profiling import traced
 from .state import EMA, build_optimizer
 
 # the reference loader drops the first and last convs (model/model.py:185-192),
@@ -141,6 +142,7 @@ class DDPMModel:
         """The 'ddpm' model: the UNet is fed the integer timestep."""
         return self.unet.time_embedding == "discrete"
 
+    @traced("train.grads")
     def compute_grads(self, batch, generator=None, gamma=None, noise=None, t=None):
         """The loss of one batch and its gradients in ``.grad``, the UNet
         in train mode with dropout drawn from ``generator`` (BatchNorm
@@ -174,6 +176,7 @@ class DDPMModel:
             self.unet.eval()
         return loss
 
+    @traced("train.update")
     def apply_gradients(self):
         """Adam on the gradients, the lr schedule's next value, then the EMA."""
         ema = self._start_ema()  # at the weights before the first step
@@ -235,6 +238,7 @@ class DDPMModel:
             return 0
         return chunk
 
+    @traced("sampler.chain")
     @torch.inference_mode()
     def _run_chain(self, generator, cond=None, shape=None, x_init=None, noise_seq=None,
                    continous=False):

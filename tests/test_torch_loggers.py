@@ -1,4 +1,4 @@
-"""The port's loggers, profiling hooks and on-device colour correction:
+"""The port's loggers, its trace export and on-device colour correction:
 ``utils/loggers.py``, ``utils/profiling.py`` and
 ``evalhsi/torch_metrics.py:color_correction_torch`` against
 ``evalhsi/jax_metrics.py:color_correction_jax`` (atol 1e-5, the JAX
@@ -9,7 +9,6 @@ import json
 import logging
 import os
 import sys
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -57,26 +56,24 @@ def test_wandb_logger_is_a_no_op_without_wandb(monkeypatch, caplog):
     w.log_checkpoint(1, 2)
 
 
-def test_phase_timer(caplog):
-    with caplog.at_level(logging.INFO, logger="base"):
-        with profiling.phase_timer("chain") as t:
-            time.sleep(0.02)
-    assert 0.02 <= t["seconds"] < 5
-    assert "[timer] chain:" in caplog.text
-    with profiling.phase_timer("quiet", log=False) as t2:
-        pass
-    assert t2["seconds"] >= 0
-
-
-def test_device_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
+def test_device_trace_writes_a_chrome_trace_on_the_cpu(tmp_path, monkeypatch):
+    """The block's spans are in ``trace.json`` as ranges of their names and
+    in ``spans.json``; the tracer it started is off again after it."""
+    monkeypatch.setattr(profiling, "_tracer", None)
+    monkeypatch.setattr(profiling, "_last", None)
     x = torch.randn(64, 64)
     with profiling.device_trace(str(tmp_path / "trace")):
-        with profiling.annotate("my_region"):
+        with profiling.span("my_region"):
             (x @ x).sum()
-    path = tmp_path / "trace" / "trace.json"
-    with open(path) as f:
+    assert not profiling.tracing()
+    with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "my_region" for e in events)
+    with open(tmp_path / "trace" / "spans.json") as f:
+        written = json.load(f)
+    assert isinstance(written["epoch_offset_ns"], int)
+    assert [(s["name"], s["parent"], s["root"]) for s in written["spans"]] == [
+        ("my_region", None, 0)]
 
 
 def _cubes(seed=0, hw=24, c=7):
