@@ -293,6 +293,9 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 GAE_CFG = {"n_subs": 16, "n_ovls": 4, "n_colors": 102, "n_feats": 64, "G": 9}
 CUBE = (1, 512, 512, 102)
 FUSED, FLASH, DOT = "gn_swish_conv3x3", "flash_attention", "blocked_dot"
+# fused Blocks per UNet forward: 54 on the wgmma route and the final conv
+# (Cout = 3) on the thin one
+BLOCKS_PER_FORWARD = 55
 PROBE = "int8_probe"
 # path -> (config, its model.diffusion changed by, launches per cube of each kernel)
 R3, R3_DDIM = "pavia_x4_r3", "pavia_x4_r3_ddim"
@@ -1340,6 +1343,7 @@ def counted_run(name, expected, run):
     fc.LAUNCHES = 0
     fa.LAUNCHES = 0
     bd.LAUNCHES = 0
+    fc.LAUNCHES_BY_ROUTE = dict.fromkeys(fc.LAUNCHES_BY_ROUTE, 0)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1349,12 +1353,19 @@ def counted_run(name, expected, run):
     secs = time.perf_counter() - t0
     launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
     recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
+    routes = dict(fc.LAUNCHES_BY_ROUTE)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[{name}] main path: {launches} kernel launches ({len(fused_calls)} fused signatures), "
-        f"{secs:.4f} s, peak memory {peak_gib:.2f} GiB")
+    log(f"[{name}] main path: {launches} kernel launches ({len(fused_calls)} fused signatures, "
+        f"routes {routes}), {secs:.4f} s, peak memory {peak_gib:.2f} GiB")
     if launches != expected or recorded != expected or bd.LAUNCHES:
         raise AssertionError(f"[{name}] {launches} launches ({recorded} recorded), "
                              f"{bd.LAUNCHES} blocked-dot launches, expected {expected}")
+    # one thin launch (the final conv, Cout = 3) per UNet forward, the rest wgmma
+    n_fused = expected[FUSED]
+    if routes != {"thin": n_fused // BLOCKS_PER_FORWARD,
+                  "wgmma": n_fused - n_fused // BLOCKS_PER_FORWARD}:
+        raise AssertionError(f"[{name}] fused routes {routes}: expected one thin launch per "
+                             f"{BLOCKS_PER_FORWARD} fused launches")
     return out, secs, peak_gib, launches, fused_calls, flash_calls
 
 

@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int BOX = 128;                 // bytes of K a stage: one swizzle row
@@ -72,10 +74,6 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;   // + swizzle alignment
 // that the 8-byte fragment writes of a half warp hit 32 distinct banks
 constexpr int OUT_ROW = BN + 8;
 static_assert(BM * OUT_ROW * 4 <= STAGES * STAGE_BYTES, "the output tile reuses the ring");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
@@ -110,38 +108,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(kb), "r"(row)
       : "memory");
-}
-
-// shared-memory matrix descriptor of a K-major tile, 128-byte swizzle:
-// 8-row groups 1024 bytes apart, the leading offset unused
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep reads and writes of wgmma accumulators on their side of a wait
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -282,7 +248,7 @@ blocked_dot_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int ks = 0; ks < BOX / 32; ++ks)
       if (ks < n_ks) Op::mma(acc, sw128_desc(a + ks * 32), sw128_desc(b + ks * 32));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(smem_u32(&bar_empty[s]));

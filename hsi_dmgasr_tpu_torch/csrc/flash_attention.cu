@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int BK = 32;          // keys per K/V tile
@@ -453,10 +455,6 @@ struct WgShape {
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;   // + alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
@@ -492,33 +490,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle. K-major (Q, K): 8-row
-// groups 1024 bytes apart, the leading offset unused. MN-major (V): 64-column
-// blocks `lead` bytes apart, 8-key groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep reads and writes of wgmma accumulators on their side of a wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
                                                      int scale_d) {
   asm volatile(
@@ -531,26 +502,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4],
@@ -587,7 +538,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 128) wgmma_m64n128k16_rs(o, a, db);
+  if constexpr (D == 128) wgmma_m64n128k16_rs<1>(o, a, db);
   else wgmma_m64n256k16_rs(o, a, db);
 }
 
@@ -676,7 +627,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const Params p) {
                            sw128_desc(k_s(s) + (kk / 4) * (WG_BK * 128) + off, 16), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sacc);
 
       // ---- online softmax (log2 units), keys at or past S masked
@@ -720,7 +671,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const Params p) {
       for (int kk = 0; kk < WG_BK / 16; ++kk)
         wgmma_pv<D>(o, pa[kk], sw128_desc(v_s(s) + kk * 16 * 128, WG_BK * 128));
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
       for (int kk = 0; kk < WG_BK / 16; ++kk)

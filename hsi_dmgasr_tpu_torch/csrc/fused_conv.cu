@@ -36,79 +36,116 @@
 // and residual, ~1.2-3.0 GB a launch at B=9 against 0.2-0.5 TFLOP. At
 // 256^2 and below (C_total up to 1024, Cout up to 512) operations.
 //
-// Design: an implicit GEMM, M = output pixels, N = Cout, K = 9 * C_total,
-// on mma.sync m16n8k16 bf16 -> f32 fed by ldmatrix from 80-byte padded
-// shared rows (conflict free). 8 warps, two CTAs per SM where the input
-// is bf16, one where it is f32 (the lo windows take the room).
+// Design: an implicit GEMM, M = output pixels, N = Cout, K = 9 * C_total.
 //  * Tiles, chosen on the host from Cout: 128 pixels (4 rows of 32) x 128
-//    channels where Cout > 64 (every level below 512^2), 256 pixels (4
-//    rows of 64) x 64 channels where Cout <= 64, and a thin 256 x 8 tile
-//    for the final conv's Cout = 3. A warp owns 64 x 32 outputs (32 x 8 on
-//    the thin tile). Square-ish tiles keep the 3x3 halo small: the window
-//    is 1.3-1.6x the tile's pixels, against 3x for one 128-pixel row.
+//    channels where Cout > 64 (Wide: every level below 512^2); 64 channels
+//    x 128 pixels (2 rows of 64) at f32 input, 256 (4 x 64) at bf16, where
+//    8 < Cout <= 64 (Tall: the 512^2 level); and a thin 256 (4 x 64) x 8
+//    tile for the final conv's Cout = 3. 8 warps, two CTAs per SM. Square-
+//    ish tiles keep the 3x3 halo small.
+//  * Wide and Tall run on wgmma.mma_async (bf16 x bf16 -> f32): each of the
+//    two warpgroups owns 64 pixel rows (128 on the bf16 Tall tile) x the
+//    CTA's whole N (m64n128, or one or two m64n64; 64 or 32 f32
+//    accumulators a thread). A comes from registers:
+//    each warp ldmatrix-loads its own 16 rows of the tap's view of the
+//    activated window (mma.sync's A fragment is wgmma's), once per step. B,
+//    the step's weight slice, is read by the wgmma from shared memory
+//    through a 64-byte-swizzle descriptor (wgmma.cuh: sw64_desc): K-major
+//    64-byte rows, the swizzle applied as the cp.async writes them, so B
+//    never enters registers. The windows and the projection's operand use
+//    the same swizzled rows: ldmatrix reads any 8 consecutive ones without
+//    bank conflicts, and padded rows would take 25 % more room (and no
+//    descriptor describes them). (The 128-byte swizzle would need K = 64 a
+//    stage, two taps or two chunks: a ring with other steps.) The
+//    thin tile keeps mma.sync m16n8k16 (a 64-row wgmma with N = 8 gains
+//    nothing), each warp 32 x 8, reading the same B rows with ldmatrix.
 //  * The K loop runs in (chunk of 32 channels, tap) steps, K = 32 each,
-//    through one 4-stage cp.async ring issued 3 stages ahead. A stage
-//    holds the step's weight slice (BN rows x 32 of the packed
-//    (J, 9, Cout, 32) weights, rows past Cout zero-filled) and a ninth of
-//    the NEXT chunk's raw input window, so weights and inputs never pass
+//    through one 5-stage cp.async ring issued 4 stages ahead. A stage holds
+//    the step's weight slice (rows past Cout zero-filled) and a ninth of the
+//    NEXT chunk's raw input window, so weights and inputs never pass
 //    through registers and are always in flight. Chunk 0's window comes
 //    through 9 leading stages that only stage it.
 //  * The (R + 2) x (BW + 2) window is double buffered in shared memory,
 //    normalised, swished and rounded to bf16 (to a hi and a lo window for
-//    f32 input, whose K steps take two MMAs): each tap is a shifted view,
-//    and each input element is activated once per CTA. After a step's
-//    MMAs, every thread activates its units of the staged ninth into the
-//    other buffer. Out-of-image positions are written as zeros after the
-//    transform, by coordinate (a zero raw pixel does not activate to zero).
+//    f32 input, whose K steps take twice the MMAs): each tap is a shifted
+//    view, and each input element is activated once per CTA. Out-of-image
+//    positions are written as zeros after the transform, by coordinate (a
+//    zero raw pixel does not activate to zero).
+//  * A wgmma K step, in one commit group: the barrier (stage st landed, each
+//    thread's copies fenced to the async proxy first); ldmatrix of the
+//    step's A; wgmma.fence; the step's wgmmas (f32: 2 k16 slices x hi, lo;
+//    bf16: 2); commit. While they run, the cp.async of stage st + 4 and the
+//    activation of the staged ninth into the other window; then
+//    wgmma.wait_group 0, so the group has retired, its A registers are
+//    free and its slot can be refilled, before the next barrier.
 //  * The projection (RES) runs after the conv's outputs are stored, as a
-//    second, short K loop (one K = 32 step a chunk) that reads the raw
-//    centre pixels again, once and without halo, and rounds them to bf16.
-//    It reuses the conv's accumulator registers, so a Block with the
-//    projection keeps the same tile and two CTAs per SM; a second
-//    accumulator alive through the main loop did not fit in 128 registers.
+//    second, short K loop (one K = 32 step a chunk, each retired before the
+//    next) that reads the raw centre pixels again, once and without halo,
+//    and rounds them to bf16. It reuses the conv's accumulator registers.
 //  * Epilogue: the accumulators go through the then idle shared memory,
 //    so bias, time bias and residual (loaded four pixels at a time) are
 //    added in f32 and the output stored in 16-byte rows; per-row stats are
 //    summed in shared memory, then one atomicAdd pair per (tile row,
 //    channel).
-// What held it (tools/fused_conv_ablation.py, H100, kernel alone at B=9
-// 128^2 256 -> 256 in f32 before its second MMA, bound 0.176 ms): the
-// MMAs alone took 0.447 ms, the ring's copies with the barrier alone
-// 0.488 ms, and all of it 0.949 ms. The parts add up instead of
-// overlapping, because every warp moves through copies, MMAs and
-// activation together between two barriers. A
-// 256-pixel tile (less weight traffic) at one CTA per SM, and producer
-// warps feeding MMA warps through mbarriers at one CTA per SM, were both
-// slower. Not yet done (later work): wgmma with A from registers, TMA
-// (weights multicast across a cluster), a producer/consumer split that
-// keeps two CTAs per SM, bf16 activations between kernels (half the
-// bytes at 512^2).
+// The wgmma helpers came from blocked_dot.cu and are shared with it
+// (wgmma.cuh: sw128_desc, wgmma_fence, wgmma_commit, wgmma_wait, fence_regs).
+// What bounds it (tools/fused_conv_ablation.py, H100, each kernel alone at
+// B=9, f32): at 128^2 256 -> 256 (Wide, bound 0.35 ms by operations) the
+// MMAs alone take 0.60 ms, the ring's copies with the barrier alone 0.59,
+// the activation about 0.2 more, all of it 1.12 (the mma.sync kernel: 0.92,
+// 0.87 and 2.00); at 512^2 64 -> 64 (Tall, bound 0.36 ms by bytes) the
+// latency of the staging chain, 16 warps an SM.
+// Tried and slower (the same calls): one wgmma group left in flight across
+// the barrier (wait_group 1, A in two register sets, the ring 2 or 3
+// stages ahead): Wide 1.22-1.27 ms against 1.10 (retired after the next
+// barrier instead, with one register set: 1.12 against 1.13, no gain at
+// any shape tried); a 4-stage ring: 1.14-1.20;
+// one CTA per SM with 255 registers: 1.65; the Tall tile as 256 pixels at
+// f32 (4 x 64, two m64 blocks a warpgroup, one CTA per SM for its windows):
+// 3.00 ms against 2.40 at 512^2 64 -> 64 (at bf16, two CTAs per SM either
+// way, the 128-pixel tile took 2.85 ms against the mma.sync kernel's 2.22).
+// Before wgmma: a 256-pixel Wide tile at one CTA per SM, and producer warps
+// feeding MMA warps through mbarriers. Not yet done (later work): TMA
+// (weights multicast across a cluster), bf16 activations between kernels
+// (half the bytes at 512^2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int KC = 32;              // channels per K chunk
-constexpr int KP = KC + 8;          // padded smem row: 80 bytes
-constexpr int ROWB = KP * 2;        // bytes of one padded row
+constexpr int ROWB = KC * 2;        // bytes of one (swizzled) row of K: 64
+constexpr int SWZ = 512;            // the 64-byte swizzle's pattern: 8 rows
 
-constexpr int NTHREADS = 256;       // 8 warps, two CTAs per SM (bf16)
-constexpr int STAGES = 4;           // ring depth
+constexpr int NTHREADS = 256;       // 8 warps
+constexpr int STAGES = 5;           // ring depth
 
-// warp grid WM x WN, each warp MT m16 tiles x NT n8 tiles; tile rows of
-// at most MAX_BW pixels
-template <int WM_, int WN_, int MT_, int NT_, int MAX_BW_>
-struct Tile {
-  static constexpr int WM = WM_, WN = WN_, MT = MT_, NT = NT_, MAX_BW = MAX_BW_;
-  static constexpr int BM = WM * 16 * MT, BN = WN * 8 * NT;
-  static_assert(WM * WN * 32 == NTHREADS, "8 warps");
-  static_assert(NT == 1 || NT % 2 == 0, "B fragments in pairs of n8 tiles");
+// wgmma tile: two warpgroups, each MF m64 blocks x the CTA's BN (one
+// m64nBNk16 wgmma a block and k16 slice); tile rows of at most MAX_BW pixels
+template <int MF_, int BN_, int MAX_BW_>
+struct WgTile {
+  static constexpr bool WG = true;
+  static constexpr int MF = MF_, BN = BN_, MAX_BW = MAX_BW_;
+  static constexpr int BM = 2 * 64 * MF;
+  static_assert(BN == 64 || BN == 128, "m64n64 or m64n128");
 };
-using WideTile = Tile<2, 4, 4, 4, 32>;  // 128 pixels (4 x 32) x 128 channels
-using TallTile = Tile<4, 2, 4, 4, 64>;  // 256 pixels (4 x 64) x 64 channels
-using ThinTile = Tile<8, 1, 2, 1, 64>;  // 256 pixels (4 x 64) x 8 channels
+// mma.sync tile: 8 warps down M, each MF m16 tiles x one n8 tile
+template <int MF_, int MAX_BW_>
+struct SyncTile {
+  static constexpr bool WG = false;
+  static constexpr int MF = MF_, BN = 8, MAX_BW = MAX_BW_;
+  static constexpr int BM = 8 * 16 * MF;
+};
+using WideTile = WgTile<1, 128, 32>;  // 128 pixels (4 x 32) x 128 channels
+// 64 channels x 128 pixels (2 x 64) for f32 input, whose hi and lo windows
+// leave room for two CTAs per SM only so; x 256 pixels (4 x 64) for bf16
+template <typename T>
+using TallTile = WgTile<sizeof(T) == 4 ? 1 : 2, 64, 64>;
+using ThinTile = SyncTile<2, 64>;     // 256 pixels (4 x 64) x 8 channels
 
 struct Params {
   const void* x;
@@ -183,54 +220,88 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Start the copy of ROWS packed weight rows (KC bf16 each) into padded
-// shared rows; rows at or past nvalid are zero-filled.
+// byte offset of 16-byte chunk c (8 channels) of row n in a tile of
+// 64-byte rows with the 64-byte swizzle (sw64_desc's layout): the weight
+// slices, the activated windows and the projection's operand. ldmatrix
+// reads any 8 consecutive rows of one chunk without bank conflicts.
+__device__ __forceinline__ uint32_t row_off(int n, int c) {
+  return n * ROWB + ((c ^ ((n >> 1) & 3)) << 4);
+}
+
+// element offset of channel q of row n in such a tile (bf16 elements)
+__device__ __forceinline__ int row_elem(int n, int q) {
+  return (row_off(n, q >> 3) >> 1) + (q & 7);
+}
+
+// Start the copy of ROWS packed weight rows (KC bf16 each) into a slice at
+// dst (512-byte aligned); rows at or past nvalid are zero-filled.
 template <int ROWS>
 __device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src, int nvalid) {
   for (int u = threadIdx.x; u < ROWS * (KC / 8); u += NTHREADS) {
-    const int n = u >> 2, kq = (u & 3) * 8;
+    const int n = u >> 2, c = u & 3;
     const bool valid = n < nvalid;
-    cp_async16(dst + n * ROWB + kq * 2, valid ? src + n * KC + kq : src, valid);
+    cp_async16(dst + row_off(n, c), valid ? src + n * KC + c * 8 : src, valid);
   }
 }
 
-// One K = 32 step of a warp tile: A rows at a_base + a_off[mt] (elements),
-// B rows at b_base + b_off[]; acc[mt][nt] += A x B^T. With SPLIT, A is
-// the pair of windows at a_base and a_base + lo_bytes: acc += (hi + lo) x B^T.
-template <int MT, int NT, bool SPLIT>
-__device__ __forceinline__ void warp_step(float (&acc)[MT][NT][4], uint32_t a_base,
-                                          const int (&a_off)[MT], uint32_t b_base,
-                                          const int (&b_off)[(NT + 1) / 2],
-                                          uint32_t lo_bytes) {
-  uint32_t thin[4];
-  if (NT == 1) ldmatrix_x4(thin, b_base + 2u * b_off[0]);  // k 0..31 of 8 rows
+// A fragments of one K = 32 step: this warp's 16 rows of each of its MF
+// blocks, this lane's row n = a_row[f] + shift of the tile at a_base (its
+// chunk half + 2 ks for k16 slice ks), and with NS = 2 the lo tile at
+// a_base + lo_bytes too
+template <int MF, int NS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[MF][2][NS][4], uint32_t a_base,
+                                       const int (&a_row)[MF], int shift, int half,
+                                       uint32_t lo_bytes) {
 #pragma unroll
-  for (int ks = 0; ks < KC; ks += 16) {
-    uint32_t b[NT][2];
-    if (NT == 1) {
-      b[0][0] = thin[ks / 8];
-      b[0][1] = thin[ks / 8 + 1];
-    } else {
+  for (int f = 0; f < MF; ++f) {
+    const int n = a_row[f] + shift;
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_base + 2u * (b_off[np] + ks));
-        b[2 * np][0] = r[0];
-        b[2 * np][1] = r[1];
-        b[2 * np + 1][0] = r[2];
-        b[2 * np + 1][1] = r[3];
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        ldmatrix_x4(a[f][ks][s], a_base + s * lo_bytes + row_off(n, 2 * ks + half));
+  }
+}
+
+// Issue one K = 32 step of a warpgroup: acc[f] += A[f] x B^T, B the BN
+// swizzled weight rows of the slice at b_s
+template <int MF, int BN, int NS>
+__device__ __forceinline__ void wg_step(float (&acc)[MF][BN / 2], const uint32_t (&a)[MF][2][NS][4],
+                                        uint32_t b_s) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    const uint64_t db = sw64_desc(b_s + ks * 32);
+#pragma unroll
+    for (int f = 0; f < MF; ++f)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        if constexpr (BN == 128) wgmma_m64n128k16_rs<0>(acc[f], a[f][ks][s], db);
+        else wgmma_m64n64k16_rs<0>(acc[f], a[f][ks][s], db);
       }
-    }
+  }
+}
+
+// One K = 32 step of a thin-tile warp (mma.sync): A rows as load_a reads
+// them, the 8 weight rows through ldmatrix at b_addr (this lane's row and
+// chunk); acc[mt] += A x B^T. With SPLIT, A is the pair of tiles at a_base
+// and a_base + lo_bytes: acc += (hi + lo) x B^T.
+template <int MT, bool SPLIT>
+__device__ __forceinline__ void warp_step(float (&acc)[MT][4], uint32_t a_base,
+                                          const int (&a_row)[MT], int shift, int half,
+                                          uint32_t b_addr, uint32_t lo_bytes) {
+  uint32_t b[4];
+  ldmatrix_x4(b, b_addr);  // k 0..31 of 8 rows
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
+      const uint32_t at = a_base + row_off(a_row[mt] + shift, 2 * ks + half);
       uint32_t a[4];
-      ldmatrix_x4(a, a_base + 2u * (a_off[mt] + ks));
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      ldmatrix_x4(a, at);
+      mma_bf16(acc[mt], a, b[2 * ks], b[2 * ks + 1]);
       if (SPLIT) {
-        ldmatrix_x4(a, a_base + lo_bytes + 2u * (a_off[mt] + ks));
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+        ldmatrix_x4(a, at + lo_bytes);
+        mma_bf16(acc[mt], a, b[2 * ks], b[2 * ks + 1]);
       }
     }
   }
@@ -319,22 +390,29 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[8])
 template <typename T, class Tl, bool RES>
 __global__ void __launch_bounds__(NTHREADS, 2)
 gn_swish_conv3x3_kernel(const Params p) {
-  constexpr int MT = Tl::MT, NT = Tl::NT, WM = Tl::WM, BM = Tl::BM, BN = Tl::BN;
+  constexpr bool WG = Tl::WG;
+  constexpr int MF = Tl::MF, BM = Tl::BM, BN = Tl::BN;
   constexpr int VIN = 16 / sizeof(T);   // input channels per 16-byte unit
   constexpr int UPP = KC / VIN;         // units per window pixel
   constexpr bool SPLIT = sizeof(T) == 4;  // f32 input: hi and lo windows
-  constexpr int NWIN = SPLIT ? 4 : 2;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NS = SPLIT ? 2 : 1;
+  constexpr int AHEAD = STAGES - 1;     // stages the ring's loads run ahead
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  // the swizzle is laid on absolute addresses: the ring starts on its pattern
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t smem_s = (raw_s + SWZ - 1) & ~(uint32_t)(SWZ - 1);
+  unsigned char* smem = smem_raw + (smem_s - raw_s);
 
   const int SP = p.npix_stage;
-  const uint32_t smem_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const uint32_t act_s = smem_s;  // 2 x SP rows, then 2 x SP lo rows if SPLIT
-  const uint32_t ring_s = act_s + NWIN * SP * ROWB;        // STAGES x (BN rows, raw part)
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int part = p.part;  // 16-byte window units per ring stage, 32 | part
+  const uint32_t stage_bytes = BN * ROWB + part * 16;  // a multiple of 512
+  const uint32_t ring_s = smem_s;  // STAGES x (BN weight rows, raw part)
+  const uint32_t act_s = ring_s + STAGES * stage_bytes;  // 2 x SP rows, then 2 x SP lo rows if SPLIT
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * stage_bytes);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WM, wn = warp / WM;
   const int n0 = blockIdx.x * BN;
   const int hseg = blockIdx.y / p.nWseg;
   const int wseg = blockIdx.y - hseg * p.nWseg;
@@ -349,35 +427,41 @@ gn_swish_conv3x3_kernel(const Params p) {
   const int J = Ct / KC;
   const int n_units = SP * UPP;
 
-  // per-lane ldmatrix offsets (elements): A rows of the window at tap
-  // (0, 0) and of the tile's own pixels; B rows of this warp's n8 tiles
-  int a_off[MT], r_off[MT], b_off[(NT + 1) / 2];
+  // first tile row of this warp's fragment f: a warpgroup's m64 blocks
+  // (its warp's 16 rows of each), or a thin-tile warp's m16 tiles
+  auto frag_row = [&](int f) {
+    return WG ? ((warp >> 2) * MF + f) * 64 + (warp & 3) * 16 : warp * 16 * MF + f * 16;
+  };
+  // this lane's ldmatrix rows of A: the window pixel of each fragment's
+  // row at tap (0, 0), and the tile's own pixel; its chunk half lane >> 4
+  int a_row[MF], r_row[MF];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    int m = wm * 16 * MT + mt * 16 + (lane & 15);
+  for (int f = 0; f < MF; ++f) {
+    int m = frag_row(f) + (lane & 15);
     if (m >= m_valid) m = 0;  // dummy row, result discarded
     const int r = m / BW, c = m - r * BW;
-    a_off[mt] = (r * SW + c) * KP + (lane >> 4) * 8;
-    r_off[mt] = m * KP + (lane >> 4) * 8;
+    a_row[f] = r * SW + c;
+    r_row[f] = m;
   }
-  if (NT == 1) {
-    b_off[0] = (wn * 8 + (lane & 7)) * KP + (lane >> 3) * 8;
-  } else {
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      const int n = wn * 8 * NT + np * 16 + (lane >> 4) * 8 + (lane & 7);
-      b_off[np] = n * KP + ((lane >> 3) & 1) * 8;
-    }
-  }
+  const int half = lane >> 4;
+  // the thin tile's B lane: weight row lane & 7, chunk lane >> 3
+  const uint32_t b_lane = row_off(lane & 7, lane >> 3);
 
-  float acc[MT][NT][4];
+  // fragment f's n8 block j: rows g and g + 8, columns 2t and 2t + 1, in
+  // acc[f][4j .. 4j + 3] (wgmma's m64 layout, and mma.sync's for one n8)
+  float acc[MF][BN / 2];
   auto zero_acc = [&]() {
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int f = 0; f < MF; ++f)
 #pragma unroll
-      for (int k = 0; k < NT; ++k)
+      for (int e = 0; e < BN / 2; ++e) acc[f][e] = 0.f;
+  };
+  auto retire = [&]() {  // every wgmma group done, its accumulators readable
+    if constexpr (WG) {
+      wgmma_wait<0>();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][k][e] = 0.f;
+      for (int f = 0; f < MF; ++f) fence_regs(acc[f]);
+    }
   };
   zero_acc();
 
@@ -395,8 +479,6 @@ gn_swish_conv3x3_kernel(const Params p) {
     hh = h0 - 1 + sr;
     ww = w0 - 1 + (pix - sr * SW);
   };
-  const int part = p.part;  // 16-byte window units per ring stage
-  const uint32_t stage_bytes = BN * ROWB + part * 16;
   // Ring stage st (st = 0 .. 9 * (J + 1) - 1) holds the weights of K step
   // st - 9 (chunk st / 9 - 1, tap st % 9) and part st % 9 of chunk st / 9's
   // raw window.
@@ -433,17 +515,17 @@ gn_swish_conv3x3_kernel(const Params p) {
   auto transform = [&](int st) {
     const int c1 = st / 9, t = st - c1 * 9;
     const uint4* raw = reinterpret_cast<const uint4*>(
-        smem + (ring_s - smem_s) + (st % STAGES) * stage_bytes + BN * ROWB);
+        smem + (st % STAGES) * stage_bytes + BN * ROWB);
     const float* sc = p.scale + (size_t)b * Ct + c1 * KC;
     const float* sh = p.shift + (size_t)b * Ct + c1 * KC;
-    __nv_bfloat16* abuf = act + (c1 & 1) * SP * KP;
+    __nv_bfloat16* abuf = act + (c1 & 1) * SP * KC;
     for (int i = tid; i < part; i += NTHREADS) {
       const int u = t * part + i;
       if (u >= n_units) break;
       int pix, q, hh, ww;
       unit_pos(u, pix, q, hh, ww);
       const bool inimg = in_window(hh, ww);
-      activate(raw[i], inimg, sc + q, sh + q, abuf + pix * KP + q, 2 * SP * KP, T());
+      activate(raw[i], inimg, sc + q, sh + q, abuf + row_elem(pix, q), 2 * SP * KC, T());
     }
   };
 
@@ -451,25 +533,47 @@ gn_swish_conv3x3_kernel(const Params p) {
   // the (chunk, tap) K steps, each staging a ninth of the next window
   const int TT = 9 * (J + 1);
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < TT) load_stage(st);
+  for (int st = 0; st < AHEAD; ++st) {
+    load_stage(st);  // TT >= 18 > AHEAD
     cp_async_commit();
   }
 #pragma unroll 1
-  for (int st = 0; st < TT; ++st) {
-    cp_async_wait<STAGES - 2>();
+  for (int st = 0; st < 9; ++st) {
+    cp_async_wait<AHEAD - 1>();
     __syncthreads();  // stage st landed; every warp is done with stage st - 1
-    if (st + STAGES - 1 < TT) load_stage(st + STAGES - 1);
+    load_stage(st + AHEAD);
     cp_async_commit();
-    const int c1 = st / 9, tap = st - c1 * 9;
-    if (c1 > 0) {
-      const int j = c1 - 1, dy = tap / 3, dx = tap - dy * 3;
-      warp_step<MT, NT, SPLIT>(acc, act_s + (j & 1) * SP * ROWB + (dy * SW + dx) * ROWB,
-                               a_off, ring_s + (st % STAGES) * stage_bytes, b_off,
-                               2 * SP * ROWB);
-    }
-    if (c1 < J) transform(st);
+    transform(st);
   }
+
+  // the K steps: a wgmma step issues its group, then refills the ring and
+  // activates the staged ninth while the group runs, and retires the group
+  // before the next barrier
+  uint32_t afr[MF][2][NS][4];
+#pragma unroll 1
+  for (int st = 9; st < TT; ++st) {
+    cp_async_wait<AHEAD - 1>();
+    if constexpr (WG) fence_proxy_async();  // this thread's weight copies, to the wgmma
+    __syncthreads();  // stage st landed; every warp is done with stage st - 1
+    const int c1 = st / 9, tap = st - c1 * 9;
+    const int j = c1 - 1, dy = tap / 3, dx = tap - dy * 3;
+    const uint32_t a_base = act_s + (j & 1) * SP * ROWB;
+    const int shift = dy * SW + dx;
+    const uint32_t b_s = ring_s + (st % STAGES) * stage_bytes;
+    if constexpr (WG) {
+      load_a<MF, NS>(afr, a_base, a_row, shift, half, 2 * SP * ROWB);
+      wgmma_fence();
+      wg_step<MF, BN, NS>(acc, afr, b_s);
+      wgmma_commit();
+    }
+    if (st + AHEAD < TT) load_stage(st + AHEAD);
+    cp_async_commit();
+    if constexpr (!WG)
+      warp_step<MF, SPLIT>(acc, a_base, a_row, shift, half, b_s + b_lane, 2 * SP * ROWB);
+    if (c1 < J) transform(st);
+    if constexpr (WG) wgmma_wait<0>();
+  }
+  retire();
 
   // ---- epilogue, through shared memory
   constexpr int TP = BN + 4;            // padded f32 tile row
@@ -485,24 +589,22 @@ gn_swish_conv3x3_kernel(const Params p) {
   T* out = static_cast<T*>(p.out);
   const T* residual = static_cast<const T*>(p.residual);
 
-  auto acc_to_tile = [&](const float (&a)[MT][NT][4]) {
+  auto acc_to_tile = [&]() {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int f = 0; f < MF; ++f)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = wm * 16 * MT + mt * 16 + g + 8 * h;
+        const int m = frag_row(f) + g + 8 * h;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int n = wn * 8 * NT + nt * 8 + 2 * t;
-          *reinterpret_cast<float2*>(tile + m * TP + n) =
-              make_float2(a[mt][nt][2 * h], a[mt][nt][2 * h + 1]);
-        }
+        for (int jn = 0; jn < BN / 8; ++jn)
+          *reinterpret_cast<float2*>(tile + m * TP + 8 * jn + 2 * t) =
+              make_float2(acc[f][4 * jn + 2 * h], acc[f][4 * jn + 2 * h + 1]);
       }
   };
 
   if (p.stats)
     for (int i = tid; i < R * 2 * BN; i += NTHREADS) sst[i] = 0.f;
-  acc_to_tile(acc);
+  acc_to_tile();
   __syncthreads();
 
   // each thread keeps one VO-channel slice of the tile and walks its pixels
@@ -608,10 +710,10 @@ gn_swish_conv3x3_kernel(const Params p) {
     // ---- the folded 1x1 projection: a second, short K loop over the
     // chunks' raw centre pixels, read again from memory (once, no halo),
     // so its accumulators are the conv's, now free. Two stages, each the
-    // chunk's projection weights and its raw pixels, then made bf16
-    // operands (a hi and a lo one where f32).
+    // chunk's projection weights (swizzled rows) and its raw pixels, then
+    // made bf16 operands (a hi and a lo one where f32).
     constexpr int CU = BM * UPP;                        // raw units per chunk
-    constexpr uint32_t PSTAGE = BN * ROWB + CU * 16;
+    constexpr uint32_t PSTAGE = BN * ROWB + CU * 16;    // a multiple of 512
     const uint32_t pa_s = smem_s + 2 * PSTAGE;          // bf16 operand, BM (+ BM lo) rows
     __nv_bfloat16* pa = reinterpret_cast<__nv_bfloat16*>(smem + 2 * PSTAGE);
     auto load_proj = [&](int j) {
@@ -635,19 +737,30 @@ gn_swish_conv3x3_kernel(const Params p) {
 #pragma unroll 1
     for (int j = 0; j < J; ++j) {
       cp_async_wait<0>();
+      if constexpr (WG) fence_proxy_async();
       __syncthreads();  // chunk j landed; every warp is done with chunk j - 1
       if (j + 1 < J) load_proj(j + 1);
       cp_async_commit();
+      const uint32_t slot = smem_s + (j & 1) * PSTAGE;
       const uint4* raw = reinterpret_cast<const uint4*>(smem + (j & 1) * PSTAGE + BN * ROWB);
       for (int u = tid; u < CU; u += NTHREADS) {
         const int m = u / UPP;
-        round_raw(raw[u], pa + m * KP + (u - m * UPP) * VIN, BM * KP, T());
+        round_raw(raw[u], pa + row_elem(m, (u - m * UPP) * VIN), BM * KC, T());
       }
       __syncthreads();
-      warp_step<MT, NT, SPLIT>(acc, pa_s, r_off, smem_s + (j & 1) * PSTAGE, b_off, BM * ROWB);
+      if constexpr (WG) {
+        load_a<MF, NS>(afr, pa_s, r_row, 0, half, BM * ROWB);
+        wgmma_fence();
+        wg_step<MF, BN, NS>(acc, afr, slot);
+        wgmma_commit();
+        wgmma_wait<0>();
+      } else {
+        warp_step<MF, SPLIT>(acc, pa_s, r_row, 0, half, slot + b_lane, BM * ROWB);
+      }
     }
+    retire();
     __syncthreads();
-    acc_to_tile(acc);
+    acc_to_tile();
     __syncthreads();
     T* res_out = static_cast<T*>(p.res_out);
     const int u = tid % UPR, nl = u * VO, n = n0 + nl;
@@ -686,11 +799,12 @@ int launch(Params p, cudaStream_t stream) {
   const int nH = (p.H + p.R - 1) / p.R;
   if (nH * p.nWseg > 65535 || p.B > 65535) return (int)cudaErrorInvalidValue;
 
-  size_t main_bytes = (size_t)(NWIN * p.npix_stage + STAGES * BN) * ROWB + STAGES * p.part * 16;
+  size_t main_bytes = (size_t)NWIN * p.npix_stage * ROWB + STAGES * ((size_t)BN * ROWB + p.part * 16);
   const size_t epi_bytes = (size_t)(BM * (BN + 4) + p.R * 2 * BN) * 4;
   size_t smem = main_bytes > epi_bytes ? main_bytes : epi_bytes;
   const size_t proj_bytes = (size_t)2 * (BN * ROWB + BM * UPP * 16) + NWIN / 2 * BM * ROWB;
   if (RES && proj_bytes > smem) smem = proj_bytes;
+  smem += SWZ;  // room to start the ring on the swizzle's pattern
   if (smem > 232448) return (int)cudaErrorInvalidValue;
 
   auto kern = gn_swish_conv3x3_kernel<T, Tl, RES>;
@@ -709,10 +823,11 @@ int launch(Params p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the route by Cout: the thin mma.sync tile, else a wgmma tile
 template <typename T, bool RES>
 int dispatch(const Params& p, cudaStream_t s) {
   if (p.Cout <= ThinTile::BN) return launch<T, ThinTile, RES>(p, s);
-  if (p.Cout <= TallTile::BN) return launch<T, TallTile, RES>(p, s);
+  if (p.Cout <= TallTile<T>::BN) return launch<T, TallTile<T>, RES>(p, s);
   return launch<T, WideTile, RES>(p, s);
 }
 

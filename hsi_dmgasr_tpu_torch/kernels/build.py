@@ -4,7 +4,8 @@ load them.
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into
 ``<repo>/build/<name>-<source hash>.so`` and loaded with ``ctypes``; a
-changed source gets a new hash and so a fresh build. The host sources,
+changed source, or a changed shared header ``csrc/*.cuh``, gets a new hash
+and so a fresh build. The host sources,
 ``csrc/<name>.cpp`` (the resize loops of ``data/imresize.py``), are built
 the same way with ``g++`` (``build_host``, ``load_host``). Nothing is
 built when a module is imported, so the package imports on a machine
@@ -27,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
 # no -march=native: without FMA contraction the host loops round as
 # numpy's multiply-then-add does
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread"]
@@ -51,8 +52,11 @@ def _nvcc():
 
 def library_path(name, suffix=".cu"):
     src = CSRC / f"{name}{suffix}"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    if suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
+    return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _compile(name, src, lib, command):

@@ -36,7 +36,10 @@ Device side: ``csrc/fused_conv.cu`` (CUDA C++ for sm_90a, bound with
 ctypes). ``gn_swish_conv3x3`` launches it for CUDA tensors and raises
 on what it does not take; for CPU tensors it runs
 ``gn_swish_conv3x3_plain``, the plain PyTorch version with the kernel's
-bf16 roundings. ``LAUNCHES`` counts kernel launches.
+bf16 roundings. ``LAUNCHES`` counts kernel launches, and
+``LAUNCHES_BY_ROUTE`` the same launches by the route the C entry takes
+for their Cout (``route``): ``"wgmma"`` (the Wide and Tall tiles) or
+``"thin"`` (the final conv's mma.sync tile).
 """
 
 from __future__ import annotations
@@ -51,8 +54,17 @@ from ..parallel.spatial import edge_flags, edge_mask, gather_rows
 from . import build
 
 KC = 32   # channels per K chunk of the CUDA kernel
+# the largest Cout of the thin mma.sync tile (csrc/fused_conv.cu: ThinTile's
+# BN, the first rule of dispatch); wider outputs take a wgmma tile
+THIN_COUT = 8
 
 LAUNCHES = 0
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "thin": 0}
+
+
+def route(cout):
+    """The kernel's route for ``cout`` output channels: "thin" or "wgmma"."""
+    return "thin" if cout <= THIN_COUT else "wgmma"
 
 
 # ----------------------------------------------------------- GroupNorm host side
@@ -294,6 +306,7 @@ def _launch(x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
                 int(x.dtype == torch.bfloat16), _ptr(hp), _ptr(hn), _ptr(hp2), _ptr(hn2),
                 int(is_first), int(is_last), stream)
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[route(cout)] += 1
     if rc != 0:
         raise RuntimeError(f"gn_swish_conv3x3 kernel launch failed: cudaError {rc}")
     results = [out]

@@ -3,13 +3,15 @@
     python -m hsi_dmgasr_tpu_torch.tools.fused_conv_ablation
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
-It builds ``csrc/fused_conv.cu`` as it is and with parts of its K loop
-taken out (one nvcc per variant, all at once), and times each variant's
-launch alone, replayed in a CUDA graph, at three main-path signatures of
-the fused Block (B=9). A variant without its copies or its barrier
-computes garbage: only its time means anything. Each ablation is a set of
-exact edits of the source; the script stops if one no longer applies.
-Prints one line per variant and signature, and writes
+It builds ``csrc/fused_conv.cu`` as it is and with parts of its wgmma K
+step (the ring's loads, the barrier, the activation, the A loads with the
+MMAs) taken out (one nvcc per variant, all at once), and times each
+variant's launch alone, replayed in a CUDA graph, at three main-path
+signatures of the fused Block (B=9): a Wide tile with a residual, a Tall
+tile, and a Wide tile with the projection, all f32. A variant without its
+copies or its barrier computes garbage: only its time means anything.
+Each ablation is a set of exact edits of the source; the script stops if
+one no longer applies. Prints one line per variant and signature, and writes
 ``chiprun_out/fused_conv_ablation.json``.
 """
 
@@ -30,11 +32,16 @@ from ..kernels import fused_conv as fc
 
 ROOT = Path(__file__).resolve().parents[2]
 
-_LOADS = ("    if (st + STAGES - 1 < TT) load_stage(st + STAGES - 1);\n", "")
-_BARRIER = ("    cp_async_wait<STAGES - 2>();\n    __syncthreads();", "")
+# the K steps of the wgmma tiles (Wide, Tall): the parts of a step
+_LOADS = ("    if (st + AHEAD < TT) load_stage(st + AHEAD);\n", "")
+_BARRIER = (("    cp_async_wait<AHEAD - 1>();\n    if constexpr (WG) fence_proxy_async();", ""),
+            ("    __syncthreads();  // stage st landed; every warp is done with stage st - 1\n"
+             "    const int c1", "    const int c1"))
 _ACTIVATION = ("    if (c1 < J) transform(st);\n", "")
-_MMA = ("      warp_step<MT, NT, SPLIT>(acc, act_s",
-        "      if (TT < 0) warp_step<MT, NT, SPLIT>(acc, act_s")
+_MMA_STEP = ("      load_a<MF, NS>(afr, a_base, a_row, shift, half, 2 * SP * ROWB);\n"
+             "      wgmma_fence();\n"
+             "      wg_step<MF, BN, NS>(acc, afr, b_s);\n")
+_MMA = (_MMA_STEP, "      if (TT < 0) {\n" + _MMA_STEP + "      }\n")
 
 # name -> edits of the source; each part of a K step taken out in turn
 ABLATIONS = {
@@ -42,7 +49,7 @@ ABLATIONS = {
     "without activation": (_ACTIVATION,),
     "without MMAs": (_MMA,),
     "MMAs and barrier": (_LOADS, _ACTIVATION),
-    "MMAs only": (_LOADS, _BARRIER, _ACTIVATION),
+    "MMAs only": (_LOADS, *_BARRIER, _ACTIVATION),
     "copies and barrier": (_MMA, _ACTIVATION),
 }
 

@@ -97,6 +97,13 @@ CASES = [
     ((1, 4, 24, 256, 128, 128), "tb+stats+proj"),  # x2 at Cout >= 128 (fuse_skip=True)
     ((9, 8, 8, 512, 0, 512), "res+stats_in+stats"),  # W = 8: a 128^2 cube's deepest level
     ((9, 8, 8, 1024, 0, 512), "tb+stats+proj"),      # its up-path block1, skip concatenated
+    # the main path's batch sizes beside 1 and 9: B=5 (a data-parallel
+    # rank's latents) and B=36 (four cubes unchunked)
+    ((5, 16, 64, 64, 64, 64), "tb+res+stats+proj"),  # Tall, x2
+    ((5, 8, 32, 256, 0, 256), "stats_in+stats"),     # Wide, two N tiles
+    ((36, 4, 32, 128, 0, 128), "tb+stats"),          # Wide
+    ((36, 4, 64, 64, 0, 64), "res+stats_in+stats"),  # Tall
+    ((36, 8, 16, 64, 0, 3), "stats_in"),             # thin
 ]
 
 
@@ -199,6 +206,18 @@ def test_kernel_rejects_unaligned_channels(dev):
     args, kw = _case(1, 4, 8, 16, 0, 16, "none", torch.float32, dev)
     with pytest.raises(ValueError, match="multiples"):
         fused_conv.gn_swish_conv3x3(*args, **kw)
+
+
+@pytest.mark.parametrize("cout,route", [(3, "thin"), (8, "thin"), (16, "wgmma"),
+                                        (64, "wgmma"), (256, "wgmma")])
+def test_launches_counted_by_route(dev, cout, route):
+    args, kw = _case(1, 4, 16, 64, 0, cout, "none", torch.float32, dev)
+    before = dict(fused_conv.LAUNCHES_BY_ROUTE)
+    fused_conv.gn_swish_conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    after = fused_conv.LAUNCHES_BY_ROUTE
+    assert after[route] == before[route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
 
 
 FLASH_CASES = [

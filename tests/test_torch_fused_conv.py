@@ -144,6 +144,48 @@ def test_packed_layout():
 
 def test_cpu_tensors_take_the_plain_version():
     d = _inputs(1, 4, 4, 32, 0, 32, "none")
-    n0 = tfc.LAUNCHES
+    n0, routes = tfc.LAUNCHES, dict(tfc.LAUNCHES_BY_ROUTE)
     out = tfc.gn_swish_conv3x3(**{k: torch.from_numpy(v) for k, v in d.items()})
     assert tfc.LAUNCHES == n0 and out.shape == (1, 4, 4, 32)
+    assert tfc.LAUNCHES_BY_ROUTE == routes
+
+
+# ------------------------------------------------ the kernel's routes by Cout
+
+
+def _tiles():
+    """{tile name: (kind, BN)} and the dispatch rules of csrc/fused_conv.cu,
+    read from the source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tfc.__file__).resolve().parent.parent / "csrc" / "fused_conv.cu").read_text()
+    # WgTile<MF, BN, MAX_BW>; a SyncTile's BN is fixed in its struct
+    sync_bn = int(re.search(r"struct SyncTile \{.*?BN = (\d+)", src, re.S).group(1))
+    tiles = {name: (kind, int(args.split(",")[1]) if kind == "WgTile" else sync_bn)
+             for name, kind, args in
+             re.findall(r"using (\w+Tile) = (WgTile|SyncTile)<([^>]*)>;", src)}
+    body = re.search(r"int dispatch\(const Params& p, cudaStream_t s\) \{(.*?)\n\}", src, re.S).group(1)
+    rules = re.findall(r"(?:if \(p\.Cout <= (\w+)(?:<T>)?::BN\) )?"
+                       r"return launch<T, (\w+)(?:<T>)?, RES>", body)
+    return tiles, rules
+
+
+def test_route_rule_is_the_kernels_dispatch():
+    """THIN_COUT is the thin tile's BN, the dispatch's first rule; every
+    other tile of the dispatch is a wgmma tile, and no Wide or Tall tile is
+    left on mma.sync."""
+    tiles, rules = _tiles()
+    assert set(tiles) == {"WideTile", "TallTile", "ThinTile"}
+    assert tiles["ThinTile"] == ("SyncTile", tfc.THIN_COUT)
+    assert tiles["WideTile"][0] == tiles["TallTile"][0] == "WgTile"
+    assert rules[0] == ("ThinTile", "ThinTile")
+    assert [t for _, t in rules[1:]] == ["TallTile", "WideTile"]
+
+
+@pytest.mark.parametrize("cout", [1, 3, 8, 9, 16, 32, 64, 65, 128, 256, 320, 512])
+def test_route_of_each_cout(cout):
+    """The Python rule picks the tile the C entry's dispatch picks."""
+    tiles, rules = _tiles()
+    tile = next(t for bound, t in rules if not bound or cout <= tiles[bound][1])
+    assert tfc.route(cout) == ("thin" if tiles[tile][0] == "SyncTile" else "wgmma")
