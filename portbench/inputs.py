@@ -63,10 +63,14 @@ def make_state(module, seed, tag, device):
 
 
 def model_states(cfg, seed, device):
-    """(GAE state_dict, UNet state_dict) of the configuration, from the seed."""
+    """(GAE state_dict, UNet state_dict) of the configuration, from the seed;
+    None for a network the configuration does not have (no ``gae_widths``,
+    no ``model.unet``). Each network draws from its own generator."""
     with torch.device("meta"):
-        gae, unet = nets.gae_from_config(cfg), nets.UNet.from_config(cfg)
-    return make_state(gae, seed, "gae", device), make_state(unet, seed, "unet", device)
+        gae = nets.gae_from_config(cfg) if "gae_widths" in cfg else None
+        unet = nets.UNet.from_config(cfg) if "unet" in cfg.get("model", {}) else None
+    return (None if gae is None else make_state(gae, seed, "gae", device),
+            None if unet is None else make_state(unet, seed, "unet", device))
 
 
 def scenes(seed, tag, n, hw, bands, device, block=16):

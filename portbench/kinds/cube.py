@@ -15,6 +15,9 @@ output cube. Once the window has closed and the program is freed, the
 plain reference super-resolves the same cubes from the same draws and the
 same weights (made again from the seed), and each kept cube is compared
 with it: the largest and the mean absolute gap over all its values.
+
+``tiny`` and ``tiny_check`` give the mix and the check at the tests' tiny
+size (``portbench/tests/tiny.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,18 @@ import torch
 
 from portbench import inputs, program, roofline
 from portbench.reference import dmgasr, nets
+
+
+def tiny(mix, size):
+    """The mix at the tests' tiny size: ``size``^2 cubes, one a call, from
+    a pool of two."""
+    return dict(mix, size=size, batch=1, pool=2)
+
+
+def tiny_check(spec):
+    """The cell's check at the tests' tiny size: two calls among the first
+    three."""
+    return dict(spec, check={"calls": 2, "within": 3})
 
 
 class Workload:

@@ -27,6 +27,9 @@ the larger of the reference's norm of that weight and of the median
 weight's; the worst weight counts. Weights whose reference gradient has a
 norm under a thousandth of the median weight's move by round-off alone
 and are left out of the changes.
+
+``tiny`` and ``tiny_check`` give the mix and the check at the tests' tiny
+size (``portbench/tests/tiny.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +44,16 @@ from portbench.reference import nets
 from portbench.reference import train as ref_train
 
 FIRST = 3  # steps driven in set-up and followed by the reference
+
+
+def tiny(mix, size):
+    """The mix at the tests' tiny size: two scenes of (2 size)^2."""
+    return dict(mix, scenes=2, scene_size=2 * size)
+
+
+def tiny_check(spec):
+    """The cell's check at the tests' tiny size: the same three steps."""
+    return spec
 
 
 class Workload:

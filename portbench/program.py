@@ -1,7 +1,12 @@
 """The system under test: the PyTorch + CUDA port's DMGASR pipeline, built
 from a configuration file of the benchmark and the state_dicts the
-benchmark made. This is the only module of the harness that imports the
-program; the reference imports nothing of it."""
+benchmark made.
+
+Which modules of the harness may import the program (the tests hold
+these rules): ``reference/`` imports nothing of it, and neither does the
+tests' tiny derivation (``tests/tiny.py``), so a kind imports it only
+inside its functions; the kinds (``kinds/``), this module and the metric
+readers (``metrics/``, e.g. ``fused_wgmma_share.cube.py``) may, and do."""
 
 from __future__ import annotations
 

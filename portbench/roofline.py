@@ -176,13 +176,18 @@ def gae_flops(B, size, n_subs=16, n_ovls=4, n_colors=102, n_feats=64, latent=3,
 
 
 def model_widths(cfg):
-    """(UNet keyword arguments, GAE keyword arguments) of a configuration."""
-    u = cfg["model"]["unet"]
-    unet = dict(image_size=cfg["model"]["diffusion"]["image_size"], inner=u["inner_channel"],
-                mults=tuple(u["channel_multiplier"]), res_blocks=u["res_blocks"],
-                attn_res=tuple(u["attn_res"]), in_channel=u["in_channel"],
-                out_channel=u["out_channel"])
-    gae = {k: cfg["gae_widths"][k] for k in ("n_subs", "n_ovls", "n_colors", "n_feats")}
+    """(UNet keyword arguments, GAE keyword arguments) of a configuration;
+    None for a network it does not have (no ``model.unet``, no
+    ``gae_widths``)."""
+    unet = gae = None
+    u = cfg.get("model", {}).get("unet")
+    if u is not None:
+        unet = dict(image_size=cfg["model"]["diffusion"]["image_size"],
+                    inner=u["inner_channel"], mults=tuple(u["channel_multiplier"]),
+                    res_blocks=u["res_blocks"], attn_res=tuple(u["attn_res"]),
+                    in_channel=u["in_channel"], out_channel=u["out_channel"])
+    if "gae_widths" in cfg:
+        gae = {k: cfg["gae_widths"][k] for k in ("n_subs", "n_ovls", "n_colors", "n_feats")}
     return unet, gae
 
 

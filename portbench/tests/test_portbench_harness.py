@@ -19,12 +19,11 @@ import sys
 import pytest
 
 from portbench import run as harness
+from portbench.tests.contract import contract
 from portbench.tests.tiny import REPO, make_root
 
 PACKAGE = REPO / "portbench"
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
 def _cells():
@@ -36,8 +35,10 @@ def _metrics():
 
 
 def _cli(root, *args):
-    """The run's command, started in ``root`` with the harness importable."""
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    """The run's command, started in ``root`` with the harness importable
+    (``REPO``'s first, then whatever the path held)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     return subprocess.run([sys.executable, "-m", "portbench.run", *args], cwd=root, env=env,
                           capture_output=True, text=True, timeout=600)
 
@@ -65,43 +66,8 @@ def test_metric_reader_found_by_name(metric):
 
 
 def test_benchmark_json_keeps_the_contract():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
-                          "end_to_end", "per_layer"}
     assert (REPO / "BENCHMARK.json").stat().st_size < 64 * 1024
-    assert 1 <= BENCH["run_seconds"] <= 51 and isinstance(BENCH["run_seconds"], int)
-    assert all(not p.startswith("/") and ".." not in p for p in BENCH["paths"])
-    names = [c["name"] for c in BENCH["configs"]]
-    cells = _cells()
-    metrics = [m["name"] for m in _metrics()]
-    for n in names + cells + metrics:
-        assert NAME.match(n), n
-    assert len(set(names)) == len(names) and len(set(cells)) == len(cells)
-    assert len(set(metrics)) == len(metrics)
-    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
-    assert len(set(pairs)) == len(pairs)
-    for c in BENCH["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert c["file"].startswith("portbench/") and c["reduced"] == []
-        assert 1 <= len(c["why"]) <= 200 and 1 <= len(c["source"]) <= 200
-    for w in BENCH["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200 and w["config"] in names
-    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
-    assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25
-    for m in _metrics():
-        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
-        assert set(m["workloads"]) <= set(cells) if "workloads" in m else True
-    for m in BENCH["end_to_end"]:
-        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
-    for m in BENCH["per_layer"]:
-        assert m["moves"] in e2e and m["source"] in ("device_trace", "program_span",
-                                                     "program_counter", "host_clock")
-        for cell in m["workloads"]:
-            assert cell in e2e[m["moves"]].get("workloads", [cell])
-    for cell in cells:
-        of = [m["name"] for m in BENCH["end_to_end"] if cell in m.get("workloads", [cell])]
-        assert "setup_s" in of and len(of) >= 2
-        assert any(cell in m.get("workloads", [cell]) for m in BENCH["per_layer"])
+    contract(BENCH, PACKAGE)
 
 
 def test_paths_hold_only_named_files():
@@ -110,6 +76,39 @@ def test_paths_hold_only_named_files():
             continue
         rel = path.relative_to(REPO).as_posix()
         assert re.match(r"^[A-Za-z0-9_./-]+$", rel), rel
+
+
+def _holds(got, want, where):
+    """Every value of ``want`` is in ``got``; ``got`` may add an ``about``."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) - set(want) <= {"about"}, where
+        for k in want:
+            assert k in got, (where, k)
+            _holds(got[k], want[k], f"{where}.{k}")
+    else:
+        assert got == want, (where, got, want)
+
+
+def test_tiny_root_keeps_the_pavia_values(tmp_path):
+    """The tiny files of the Pavia configurations, of the cube and train
+    mixes and of the three cells hold every value they held when the
+    tiny derivation named the kinds and keys itself (``tiny_pavia.json``)."""
+    make_root(tmp_path)
+    kept = json.loads((PACKAGE / "tests" / "tiny_pavia.json").read_text())
+    for rel, want in kept.items():
+        _holds(json.loads((tmp_path / rel).read_text()), want, rel)
+
+
+def test_tiny_derivation_imports_nothing_of_the_port(tmp_path):
+    code = ("import sys\n"
+            "from portbench.tests.tiny import make_root\n"
+            f"make_root({str(tmp_path)!r})\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules} & {'hsi_dmgasr_tpu_torch',"
+            " 'hsi_dmgasr_tpu', 'jax'}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]"
 
 
 # ----------------------------------------------------------------- imports

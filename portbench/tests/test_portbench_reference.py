@@ -9,6 +9,7 @@ timed path is broken underneath.
 
 from __future__ import annotations
 
+import hashlib
 import json
 from pathlib import Path
 from types import SimpleNamespace
@@ -16,7 +17,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from portbench import control, roofline
+from portbench import control, inputs, roofline
 from portbench import run as harness
 from portbench.reference import imresize
 from portbench.tests.tiny import REPO, make_root
@@ -61,6 +62,39 @@ def test_cube_totals():
     assert abs(roofline.train_step_flops(cfg["pavia_x4_r3"], 4, 128) / 1e12 - 9.64) < 0.01
 
 
+def _digest(state):
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+# the seeded states of the tiny Pavia configurations (seed 4300000001), as
+# the weights were drawn before a configuration could leave out a network
+TINY_STATES = {"gae": "114762640fe9b436c42f70556bba85a0dc59922982958238b7700de92ff4e8c8",
+               "unet": "13f8ab2586b6e4f1ede850d04d407324f54cdbe21092235316491a47fcaaf57e"}
+
+
+@pytest.mark.parametrize("config", ["tiny_pavia_x4_r3", "tiny_pavia_x4"])
+def test_seeded_states_of_each_network(tiny, config):
+    """The same bits for a configuration with both networks; None for a
+    network a configuration leaves out, and the same bits for the other;
+    the analytic widths likewise."""
+    cfg = json.loads((tiny / "portbench" / "configs" / f"{config}.json").read_text())
+    gae, unet = inputs.model_states(cfg, 4300000001, "cpu")
+    assert {"gae": _digest(gae), "unet": _digest(unet)} == TINY_STATES
+    no_gae = {k: v for k, v in cfg.items() if k != "gae_widths"}
+    none, unet_only = inputs.model_states(no_gae, 4300000001, "cpu")
+    assert none is None and _digest(unet_only) == TINY_STATES["unet"]
+    no_unet = dict(cfg, model={k: v for k, v in cfg["model"].items() if k != "unet"})
+    gae_only, none = inputs.model_states(no_unet, 4300000001, "cpu")
+    assert none is None and _digest(gae_only) == TINY_STATES["gae"]
+    unet_w, gae_w = roofline.model_widths(cfg)
+    assert roofline.model_widths(no_gae) == (unet_w, None)
+    assert roofline.model_widths(no_unet) == (None, gae_w)
+
+
 def test_kernel_work_counts_each_byte_once():
     t = lambda *s, dt="float32": ("tensor", s, dt)  # noqa: E731
     sig = (("x", t(9, 64, 64, 256)), ("kernel", t(3, 3, 256, 512)), ("res_kernel", None),
@@ -79,82 +113,36 @@ def test_kernel_work_counts_each_byte_once():
 # ----------------------------------------------------------------- faults
 
 
-def _altered_cube(monkeypatch):
-    from hsi_dmgasr_tpu_torch.pipeline import DMGASRPipeline
-
-    real = DMGASRPipeline.super_resolve
-
-    def altered(self, *a, **kw):
-        out = real(self, *a, **kw).clone()
-        out[0, 0, 0, 0] = 1.0 - out[0, 0, 0, 0]
-        return out
-    monkeypatch.setattr(DMGASRPipeline, "super_resolve", altered)
-
-
-def _half_batch_unet(monkeypatch):
-    from hsi_dmgasr_tpu_torch.models.unet import UNet
-
-    real = UNet.forward
-
-    def half(self, x, time, spatial=None):
-        n = x.shape[0] // 2 or 1
-        out = real(self, x[:n], time[:n], spatial)
-        return out[torch.arange(x.shape[0]) % n]  # the other half copied, not computed
-    monkeypatch.setattr(UNet, "forward", half)
-
-
-def _chain_step_unchanged(monkeypatch):
-    from hsi_dmgasr_tpu_torch.diffusion.gaussian import GaussianDiffusion
-
-    monkeypatch.setattr(GaussianDiffusion, "_step", lambda self, fn, x, *a, **kw: x)
-
-
-def _train_step_unchanged(monkeypatch):
-    from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
-
-    def frozen(self):
-        self._start_ema()
-        self.step += 1
-    monkeypatch.setattr(DDPMModel, "apply_gradients", frozen)
-
-
-def _half_batch_loss(monkeypatch):
-    from hsi_dmgasr_tpu_torch.diffusion.gaussian import GaussianDiffusion
-
-    real = GaussianDiffusion._loss
-
-    def half(self, noise, eps_pred, weight):
-        n = noise.shape[0] // 2
-        return real(self, noise[:n], eps_pred[:n], weight[:n])
-    monkeypatch.setattr(GaussianDiffusion, "_loss", half)
-
-
-def _altered_loss(monkeypatch):
-    from hsi_dmgasr_tpu_torch.pipeline import DMGASRPipeline
-
-    real = DMGASRPipeline.train_step_from_hr
-    monkeypatch.setattr(DMGASRPipeline, "train_step_from_hr",
-                        lambda self, *a, **kw: real(self, *a, **kw) * 1.01)
-
-
-FAULTS = {"cube": [_altered_cube, _half_batch_unet, _chain_step_unchanged],
-          "train": [_train_step_unchanged, _half_batch_loss, _altered_loss]}
+def faults_of(package, kind):
+    """The faults planted under a cell of ``kind``: the ``FAULTS`` list of
+    ``<package>/tests/faults/<kind>.py``. A kind without that file has not
+    shown that its check fails a broken timed path, and fails here."""
+    path = Path(package) / "tests" / "faults" / f"{kind}.py"
+    assert path.is_file(), f"kind {kind!r} has no planted faults: {path} is missing"
+    faults = harness.load_file_module(path).FAULTS
+    assert faults, f"{path} plants no fault"
+    return faults
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_timed_path_is_not_correct(tiny, cell, monkeypatch):
-    """The whole run but the look for a card, with each fault the cell can
-    have planted in the program underneath: ``correct`` comes out false."""
-    kind = json.loads((REPO / "portbench" / "traffic"
-                       / f"{next(w['traffic'] for w in BENCH['workloads'] if w['name'] == cell)}"
-                       ".json").read_text())["kind"]
-    for plant in FAULTS[kind]:
+    """The whole run but the look for a card, with each fault the cell's
+    kind can have planted in the program underneath: ``correct`` comes out
+    false."""
+    traffic = next(w["traffic"] for w in BENCH["workloads"] if w["name"] == cell)
+    kind = json.loads((harness.PACKAGE / "traffic" / f"{traffic}.json").read_text())["kind"]
+    for plant in faults_of(harness.PACKAGE, kind):
         with monkeypatch.context() as m:
             plant(m)
             args = SimpleNamespace(workload=f"tiny_{cell}", seed=4200000009, seconds=0.3,
                                    trace=0, device="cpu")
             result = harness.run_cell(args, Path(tiny))
         assert result["correct"] is False, (plant.__name__, result["checks"])
+
+
+def test_a_kind_without_faults_is_refused(tmp_path):
+    with pytest.raises(AssertionError, match="no planted faults"):
+        faults_of(tmp_path, "cube")
 
 
 # --------------------------------------------------------------- the card
