@@ -173,8 +173,13 @@ In order:
     at once) and prints the build seconds and register use;
  3. for each Pavia path and each bench row: sets the launch counts to 0,
     drives one cube while recording every launch signature of both
-    kernels, checks the cube (shape, finite, in [0, 1]) and the exact
-    launch counts, times it (median of 3) and reads the peak memory; holds
+    kernels and every call of the up path (ops/fused_up.py:up2_conv3x3),
+    checks the cube (shape, finite, in [0, 1]) and the exact launch counts
+    (the up path: 4 calls a UNet forward, each f32 call a launch of its
+    kernel and each bf16 one cuDNN's transposed conv, as its router counts
+    them; every UNet path below is held to the same, and the spatial
+    path's ranks to no call), times it (median of 3) and reads the peak
+    memory; holds
     one full-width UNet forward with the kernels against the same forward
     with their plain versions (in bf16 for the bench; the f32 paths also
     report both against the unfused f32 forward). Then pavia_x4_r3_chunked
@@ -249,7 +254,12 @@ In order:
     launch of each per call) and the einsum route's time beside it; the
     blocked dot at each probe case and dtype, with its share of the bound,
     TOP/s and ratio to the library call, and a 3-link captured chain
-    against the same chain run eagerly;
+    against the same chain run eagerly; the up path's kernel at each f32
+    signature recorded (the four up levels at B=9, 5, 1, 12 and 36 and at
+    the validations' 128^2) against its plain version and cuDNN's f32
+    transposed conv (TF32 off), each within TOL_UP2 of sum |x| |w|, with
+    its time, its launch alone (a CUDA graph), the plain version's and the
+    transposed conv's times and the bound;
  5. the unfused UNet against the reference torch golden
     (tests/golden/unet_diffusion_golden.npz);
  6. prints the card line, the kernels JSON line and, last, the result
@@ -293,6 +303,11 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 GAE_CFG = {"n_subs": 16, "n_ovls": 4, "n_colors": 102, "n_feats": 64, "G": 9}
 CUBE = (1, 512, 512, 102)
 FUSED, FLASH, DOT = "gn_swish_conv3x3", "flash_attention", "blocked_dot"
+UP2 = "up2_conv3x3"
+# calls of ops/fused_up.py:up2_conv3x3 per fused UNet forward (one Upsample
+# each of the four levels up), whose router launches the up path's kernel
+# for f32 and takes cuDNN's transposed conv for bf16
+UPS_PER_FORWARD = 4
 # fused Blocks per UNet forward: 54 on the wgmma route and the final conv
 # (Cout = 3) on the thin one
 BLOCKS_PER_FORWARD = 55
@@ -515,6 +530,10 @@ TOL_EMA, TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-6, 1e-4, 1e-3
 # blocked dot, bf16: f32 sums in another order than the plain version's
 # float64, on outputs of about sqrt(K) = 14-24 (int8 is held bit for bit)
 TOL_DOT_ABS, TOL_DOT_REL = 1e-3, 1e-4
+# up path kernel, elementwise, as a share of sum |x| |w| over the output's
+# taps: its bf16 hi + lo products leave out terms below 3 x 2^-18 (1.1e-5) of
+# it, and f32 sums over K = 4 C taps in another order add about 1e-6
+TOL_UP2 = 2e-5
 
 
 def log(msg):
@@ -565,13 +584,14 @@ def graph_ms(fn, calls=20, reps=5):
 
 
 @contextmanager
-def recording(fused_calls, flash_calls):
-    """Record the signature of every fused-Block and flash call the UNet
-    makes. The real wrappers still run, and count their own launches."""
+def recording(fused_calls, flash_calls, up2_calls):
+    """Record the signature of every fused-Block, flash and up-path call the
+    UNet makes. The real wrappers still run, and count their own launches."""
     from hsi_dmgasr_tpu_torch.kernels import attention as attn_mod
     from hsi_dmgasr_tpu_torch.models import unet as unet_mod
 
     real_fused, real_flash = unet_mod.gn_swish_conv3x3, attn_mod.flash_attention
+    real_up2 = unet_mod.up2_conv3x3
 
     def rec_fused(x, gn_scale, gn_bias, kernel, bias, **kw):
         x2 = kw.get("x2")
@@ -590,23 +610,37 @@ def recording(fused_calls, flash_calls):
         flash_calls[sig] = flash_calls.get(sig, 0) + 1
         return real_flash(q, k, v, scale)
 
+    def rec_up2(x, kernel, bias=None, **kw):
+        sig = (tuple(x.shape), kernel.shape[-1], bias is not None, dtype_name(x.dtype))
+        up2_calls[sig] = up2_calls.get(sig, 0) + 1
+        return real_up2(x, kernel, bias, **kw)
+
     with mock.patch.object(unet_mod, "gn_swish_conv3x3", rec_fused), \
-            mock.patch.object(attn_mod, "flash_attention", rec_flash):
+            mock.patch.object(attn_mod, "flash_attention", rec_flash), \
+            mock.patch.object(unet_mod, "up2_conv3x3", rec_up2):
         yield
 
 
 @contextmanager
 def plain_kernels():
-    """Route the UNet through both kernels' plain versions."""
+    """Route the UNet through the kernels' plain versions."""
     from hsi_dmgasr_tpu_torch.kernels import attention as attn_mod
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.kernels import up2_conv
     from hsi_dmgasr_tpu_torch.models import unet as unet_mod
+    from hsi_dmgasr_tpu_torch.ops import fused_up
 
     def plain(*args, packed=None, **kw):
         return fc.gn_swish_conv3x3_plain(*args, **kw)
 
+    def plain_up(x, kernel, bias=None, packed=None):
+        if up2_conv.takes(x, kernel):
+            return fused_up.up2_conv3x3_parity(x, kernel, bias)
+        return fused_up.up2_conv3x3_transpose(x, kernel, bias)
+
     with mock.patch.object(unet_mod, "gn_swish_conv3x3", plain), \
+            mock.patch.object(unet_mod, "up2_conv3x3", plain_up), \
             mock.patch.object(attn_mod, "flash_attention", fa.flash_attention_plain):
         yield
 
@@ -758,6 +792,88 @@ def bound(sig):
     nbytes = (2 if dt == "bf16" else 4) * (pix_in * ct + pix * cout * (1 + res + proj))
     nbytes += 2 * (9 + proj) * ct * cout + 4 * (b * h * 2 * (c * sin + c2 * sin2 + cout * emit))
     return pick_bound(nbytes, (2 if dt == "bf16" else 4) * pix * cout * ct * (9 + proj))
+
+
+def up2_bound(sig):
+    """Up path: operations 2 B (2H)(2W) 4 C Cout counted once; x and the
+    output once in f32, the 3x3 weights once in f32."""
+    (b, h, w, c), cout = sig[:2]
+    return pick_bound(4.0 * (b * h * w * c + 4 * b * h * w * cout + 9 * c * cout),
+                      2.0 * b * 4 * h * w * 4 * c * cout)
+
+
+def check_up2(sig, seed):
+    """The up path's kernel at one recorded f32 signature: against its
+    plain version and cuDNN's f32 transposed conv, each within TOL_UP2 of
+    sum |x| |w|; its time through ``up2_conv3x3`` on weights packed once (as
+    ``Upsample`` keeps them), its launch alone in a CUDA graph, the plain
+    version's and the transposed conv's."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import up2_conv
+    from hsi_dmgasr_tpu_torch.ops import fused_up
+
+    (b, h, w, c), cout, with_bias, _ = sig
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    kernel = torch.randn((3, 3, c, cout), generator=gen, device="cuda") / math.sqrt(9 * c)
+    bias = torch.randn((cout,), generator=gen, device="cuda") if with_bias else None
+    packed = up2_conv.pack_up2(fused_up.parity_taps(kernel))
+    launched = up2_conv.LAUNCHES_BY_ROUTE["kernel"]
+    got = fused_up.up2_conv3x3(x, kernel, bias, packed=packed)
+    if up2_conv.LAUNCHES_BY_ROUTE["kernel"] != launched + 1:
+        raise AssertionError(f"{UP2} {sig}: the f32 call did not take the kernel")
+    scale = fused_up.up2_conv3x3_transpose(x.abs(), kernel.abs())
+    errs = {}
+    for name, want in (("plain", fused_up.up2_conv3x3_parity(x, kernel, bias)),
+                       ("cudnn_f32", fused_up.up2_conv3x3_transpose(x, kernel, bias))):
+        rel = ((got - want).abs() / scale.clamp_min(1e-30)).max().item()
+        errs[name] = {"max_abs": (got - want).abs().max().item(), "max_rel_sum": rel}
+        if rel > TOL_UP2:
+            raise AssertionError(f"{UP2} {sig}: kernel vs {name} {errs[name]}")
+    del got, want, scale
+    ms = cuda_ms(lambda: fused_up.up2_conv3x3(x, kernel, bias, packed=packed), reps=5)
+    out = torch.empty((b, 2 * h, 2 * w, cout), device="cuda")
+    fn = up2_conv._entry()
+
+    def launch():
+        rc = fn(x.data_ptr(), packed.wpack.data_ptr(), None if bias is None else bias.data_ptr(),
+                out.data_ptr(), b, h, w, c, cout, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{UP2} launch failed: cudaError {rc}")
+    kernel_ms = graph_ms(launch, calls=10, reps=5)
+    plain_ms = cuda_ms(lambda: fused_up.up2_conv3x3_parity(x, kernel, bias), reps=2)
+    library_ms = cuda_ms(lambda: fused_up.up2_conv3x3_transpose(x, kernel, bias), reps=3)
+    b_ms, b_by = up2_bound(sig)
+    return {"signature": f"f32 B={b} {h}x{w} {c}->{cout}" + ("" if with_bias else " no bias"),
+            "level": f"{h}x{w}",
+            "errors": {"out": errs["cudnn_f32"], **errs}, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_frac": b_ms / ms, "kernel_bound_frac": b_ms / kernel_ms,
+            "vs_library": ms / library_ms}
+
+
+def up2_rows(up2_sigs):
+    """``check_up2`` at every f32 signature the main paths recorded (the
+    kernel's route), each row with its calls per path and logged."""
+    import torch
+
+    rows = []
+    f32 = sorted((kv for kv in up2_sigs.items() if kv[0][-1] == "f32"),
+                 key=lambda kv: (kv[0][0][0], kv[0][0][1]))
+    for i, (sig, counts) in enumerate(f32):
+        row = check_up2(sig, seed=400 + i)
+        row["counts"] = counts
+        rows.append(row)
+        log(f"{UP2} {row['signature']:<28} {counts} abs {row['errors']['out']['max_abs']:.2e} "
+            f"of sum|x||w| "
+            f"{row['errors']['cudnn_f32']['max_rel_sum']:.2e} (plain "
+            f"{row['errors']['plain']['max_rel_sum']:.2e}) | ms {row['ms']:.3f} kernel alone "
+            f"{row['kernel_ms']:.3f} plain {row['plain_ms']:.3f} cudnn f32 {row['library_ms']:.3f} "
+            f"bound {row['bound_ms']:.3f} ({row['bound_by']}) of bound "
+            f"{row['kernel_bound_frac']:.3f} x cudnn {row['vs_library']:.3f}")
+        torch.cuda.empty_cache()
+    return rows
 
 
 def bare_launch(fc, args, kw, packed):
@@ -1117,7 +1233,7 @@ def run_path(name, config, diffusion, expected, cube, profile):
 
     pipe = build_pipeline(config, diffusion)
     # the counted main-path run, which also records the launch signatures
-    out, _, peak_gib, launches, fused_calls, flash_calls = counted_run(
+    out, _, peak_gib, launches, fused_calls, flash_calls, up2_calls = counted_run(
         name, expected,
         lambda: pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(2)))
     check_cube(name, out, CUBE)
@@ -1165,7 +1281,7 @@ def run_path(name, config, diffusion, expected, cube, profile):
         log_profile(name, report["profile"])
     del pipe
     torch.cuda.empty_cache()
-    return report, fused_calls, flash_calls
+    return report, fused_calls, flash_calls, up2_calls
 
 
 def check_chain(name, pipe, cube):
@@ -1220,13 +1336,14 @@ def spatial_rank(rank, device, weights, timed_seed):
             cube, mesh, generator=torch.Generator(device="cuda").manual_seed(seed),
             replay_noise=True)
 
-    fused_calls, flash_calls = {}, {}
+    fused_calls, flash_calls, up2_calls = {}, {}, {}
     fc.LAUNCHES = 0
     fa.LAUNCHES = 0
     bd.LAUNCHES = 0
+    zero_up2()
     mesh.gathered.clear()
     torch.cuda.reset_peak_memory_stats()
-    with recording(fused_calls, flash_calls), \
+    with recording(fused_calls, flash_calls, up2_calls), \
             mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
         out = sharded_cube(SPATIAL_SEED)
     torch.cuda.synchronize()
@@ -1236,13 +1353,15 @@ def spatial_rank(rank, device, weights, timed_seed):
     if launches != SPATIAL_PER_RANK or bd.LAUNCHES:
         raise AssertionError(f"[{SPATIAL}] rank {rank}: {launches}, {bd.LAUNCHES} blocked-dot "
                              f"launches per cube, expected {SPATIAL_PER_RANK} and none")
+    # an H-shard's up path is up2_conv3x3_spatial's transposed conv, not the router
+    launches[UP2] = up2_launches(f"{SPATIAL}:rank{rank}", 0, up2_calls)
     check_cube(SPATIAL, out, CUBE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sharded_cube(timed_seed)
     torch.cuda.synchronize()
     return {"launches": launches, "fused_calls": fused_calls, "flash_calls": flash_calls,
-            "gathered_bytes": gathered, "peak_memory_gib": peak_gib,
+            "up2_calls": up2_calls, "gathered_bytes": gathered, "peak_memory_gib": peak_gib,
             "cube_seconds": time.perf_counter() - t0,
             "latent": decode.call_args[0][0].cpu(), "cube": out.cpu()}
 
@@ -1305,12 +1424,13 @@ def run_spatial():
         f"single-device chains from the same draws differ by {spread}")
     if not within(ranks[0]["latent"], single[0], TOL_UNET):
         raise AssertionError(f"[{SPATIAL}] sharded chain vs single-device: {err}")
-    fused_calls, flash_calls = {}, {}
+    fused_calls, flash_calls, up2_calls = {}, {}, {}
     for r in ranks:
-        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"])):
+        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"]),
+                            (up2_calls, r["up2_calls"])):
             for sig, n in calls.items():
                 mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH)}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2)}
     times = [r["cube_seconds"] for r in ranks]
     report = {"mesh": SPATIAL_MESH, "note": TWO_RANKS, "launches": launches,
               "launches_per_rank": [r["launches"] for r in ranks],
@@ -1325,29 +1445,55 @@ def run_spatial():
         f"{[round(g, 2) for g in report['peak_memory_gib']]} GiB; bytes gathered per cube by "
         f"rank {report['gathered_bytes_per_cube']}; launches per rank "
         f"{report['launches_per_rank']}; the ranks took {secs:.1f} s in all")
-    return report, fused_calls, flash_calls
+    return report, fused_calls, flash_calls, up2_calls
+
+
+def zero_up2():
+    """The up path's route counts to 0."""
+    from hsi_dmgasr_tpu_torch.kernels import up2_conv
+
+    for route in up2_conv.LAUNCHES_BY_ROUTE:
+        up2_conv.LAUNCHES_BY_ROUTE[route] = 0
+
+
+def up2_launches(name, forwards, up2_calls):
+    """The up path in a run of ``forwards`` fused UNet forwards, its counts
+    set to 0 (``zero_up2``) before it: UPS_PER_FORWARD recorded calls a
+    forward, and the router counted each f32 call on the kernel and each
+    other on the transposed conv. Returns the kernel's launches."""
+    from hsi_dmgasr_tpu_torch.kernels import up2_conv
+
+    routes = dict(up2_conv.LAUNCHES_BY_ROUTE)
+    calls = sum(up2_calls.values())
+    f32 = sum(n for sig, n in up2_calls.items() if sig[-1] == "f32")
+    if calls != UPS_PER_FORWARD * forwards or routes != {"kernel": f32, "transpose": calls - f32}:
+        raise AssertionError(f"[{name}] up path: routes {routes}, {calls} calls recorded ({f32} "
+                             f"f32), expected {UPS_PER_FORWARD} a UNet forward x {forwards}, "
+                             "each f32 call on the kernel")
+    return routes["kernel"]
 
 
 def counted_run(name, expected, run):
     """One main-path run: the launch counts set to 0 and the peak memory
     reset just before ``run()``, its launch signatures recorded, the exact
     counts (recorded and counted) read just after. Returns its output,
-    seconds, peak memory, launches and signatures."""
+    seconds, peak memory, launches and signatures (fused, flash, up path)."""
     import torch
 
     from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
 
-    fused_calls, flash_calls = {}, {}
+    fused_calls, flash_calls, up2_calls = {}, {}, {}
     fc.LAUNCHES = 0
     fa.LAUNCHES = 0
     bd.LAUNCHES = 0
     fc.LAUNCHES_BY_ROUTE = dict.fromkeys(fc.LAUNCHES_BY_ROUTE, 0)
+    zero_up2()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with recording(fused_calls, flash_calls):
+    with recording(fused_calls, flash_calls, up2_calls):
         out = run()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1366,7 +1512,9 @@ def counted_run(name, expected, run):
                   "wgmma": n_fused - n_fused // BLOCKS_PER_FORWARD}:
         raise AssertionError(f"[{name}] fused routes {routes}: expected one thin launch per "
                              f"{BLOCKS_PER_FORWARD} fused launches")
-    return out, secs, peak_gib, launches, fused_calls, flash_calls
+    launches[UP2] = up2_launches(name, n_fused // BLOCKS_PER_FORWARD, up2_calls)
+    log(f"[{name}] up path: {launches[UP2]} kernel launches, {len(up2_calls)} signatures")
+    return out, secs, peak_gib, launches, fused_calls, flash_calls, up2_calls
 
 
 @contextmanager
@@ -1407,14 +1555,14 @@ def run_chunked():
     for name, chunk in ((CHUNKED, CHUNK), (CHUNKED_WHOLE, None)):
         with latent_chunk(pipe, chunk), \
                 mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
-            out, secs, peak, launches, fused_calls, flash_calls = counted_run(
+            out, secs, peak, launches, fused_calls, flash_calls, up2_calls = counted_run(
                 name, CHUNK_PATHS[name],
                 lambda: pipe.super_resolve(cubes, x_init=x_init, noise_seq=noise))
         check_cube(name, out, cubes.shape)
         outs[name] = (decode.call_args[0][0], out)
         runs[name] = ({"config": config, "latent_chunk": chunk, "cubes": CHUNK_CUBES,
                        "counted_run_seconds": secs, "peak_memory_gib": peak,
-                       "launches": launches}, fused_calls, flash_calls)
+                       "launches": launches}, fused_calls, flash_calls, up2_calls)
     err = {what: divergence(outs[CHUNKED][i], outs[CHUNKED_WHOLE][i])
            for i, what in enumerate(("latent", "cube"))}
     log(f"[{CHUNKED}] chunked ({CHUNK_CUBES * GAE_CFG['G']} latents in chains of {CHUNK}) vs "
@@ -1476,7 +1624,7 @@ def run_tiled():
         return tiles[-1]
 
     with mock.patch.object(pipe, "super_resolve", keep):
-        out, secs, peak, launches, fused_calls, flash_calls = counted_run(
+        out, secs, peak, launches, fused_calls, flash_calls, up2_calls = counted_run(
             TILED, TILED_PER_SCENE, lambda: pipe.super_resolve_tiled(
                 scene, tile=TILE, overlap=OVERLAP,
                 generator=torch.Generator(device="cuda").manual_seed(13)))
@@ -1498,7 +1646,7 @@ def run_tiled():
               "launches": launches, "tile_vs_super_resolve": err}
     del pipe, scene, out, tiles, want
     torch.cuda.empty_cache()
-    return report, fused_calls, flash_calls
+    return report, fused_calls, flash_calls, up2_calls
 
 
 def run_train_remat(dirs, gae_ckpt, train_report):
@@ -1616,12 +1764,12 @@ def run_bench(profile):
     cube = bench.make_cube(args, model)
     reports = {}
     for name, t_start in ((BENCH, args.t_start), (BENCH_FULL, None)):
-        out, _, peak_gib, launches, fused_calls, flash_calls = counted_run(
+        out, _, peak_gib, launches, fused_calls, flash_calls, up2_calls = counted_run(
             name, BENCH_PATHS[name], lambda: model.super_resolve(cube, 2, t_start))
         check_cube(name, out, (args.batch, model.size, model.size, model.channels))
         del out
         reports[name] = ({"t_start": t_start, "peak_memory_gib": peak_gib,
-                          "launches": launches}, fused_calls, flash_calls)
+                          "launches": launches}, fused_calls, flash_calls, up2_calls)
 
     # the GAE's overlap average on the card: index_add_ of bf16 adds with
     # atomics, rounding after each add in no fixed order, where the CPU's
@@ -1820,7 +1968,6 @@ def run_train(profile, dirs, gae_ckpt):
     (median after 2 warm-up steps) and reads the peak memory of the steps."""
     import torch
 
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
     from hsi_dmgasr_tpu_torch.pipeline import DMGASRPipeline
@@ -1832,7 +1979,7 @@ def run_train(profile, dirs, gae_ckpt):
     shutil.rmtree(root, ignore_errors=True)
     opt = train_config(root, dirs, gae_ckpt)
     log(f"[{TRAIN}] the GAE: {gae_ckpt}, trained by {TRAIN_GAE}")
-    steps, ema_errs, val, fused_calls, flash_calls = [], [], {}, {}, {}
+    steps, ema_errs, val, fused_calls, flash_calls, up2_calls = [], [], {}, {}, {}, {}
     real_step, real_apply = DMGASRPipeline.train_step_from_hr, DDPMModel.apply_gradients
     real_validate = drv.validate
 
@@ -1859,17 +2006,18 @@ def run_train(profile, dirs, gae_ckpt):
 
     def counted_validate(*args, **kw):
         torch.cuda.synchronize()
-        val["train_launches"] = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
+        val["train_launches"] = kernel_counts()
         fc.LAUNCHES = fa.LAUNCHES = 0
-        with recording(fused_calls, flash_calls):
+        zero_up2()
+        with recording(fused_calls, flash_calls, up2_calls):
             res = real_validate(*args, **kw)
         torch.cuda.synchronize()
         val["launches"] = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
+        val["up2"] = up2_launches(f"{TRAIN} validation", TRAIN_VAL[FUSED] // BLOCKS_PER_FORWARD,
+                                  up2_calls)
         return res
 
-    fc.LAUNCHES = 0
-    fa.LAUNCHES = 0
-    bd.LAUNCHES = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(DMGASRPipeline, "train_step_from_hr", timed_step), \
             mock.patch.object(DDPMModel, "apply_gradients", checked_apply), \
@@ -1880,7 +2028,7 @@ def run_train(profile, dirs, gae_ckpt):
     log(f"[{TRAIN}] {len(steps)} steps, losses {losses}")
     if len(steps) != TRAIN_STEPS or ddpm.step != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"[{TRAIN}] {len(steps)} steps ({ddpm.step} updates), losses {losses}")
-    if val.get("train_launches") != {FUSED: 0, FLASH: 0, DOT: 0}:
+    if val.get("train_launches") != {FUSED: 0, FLASH: 0, DOT: 0, UP2: 0}:
         raise AssertionError(f"[{TRAIN}] the train steps launched {val.get('train_launches')}, "
                              "expected no kernel")
     recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
@@ -1918,7 +2066,7 @@ def run_train(profile, dirs, gae_ckpt):
               "roofline_share_f32": flops / step_s / (peak_tflops * 1e12),
               "val_cube_seconds": results["ave_time"],
               "val_results": json.loads(json.dumps(results, default=float)),
-              "ema_worst_rel_err": max(ema_errs), "launches": val["launches"]}
+              "ema_worst_rel_err": max(ema_errs), "launches": {**val["launches"], UP2: val["up2"]}}
     log(f"[{TRAIN}] ms per train step (median of {len(steps) - 2} after 2 warm-up): "
         f"{step_s * 1e3:.2f} ({n_latents} latents of {size}^2 from "
         f"{opt['datasets']['train']['batch_size']} HR crops)")
@@ -1994,7 +2142,7 @@ def run_train(profile, dirs, gae_ckpt):
         log_profile(TRAIN, report["profile"])
     del pipe, ddpm, unet
     torch.cuda.empty_cache()
-    return report, fused_calls, flash_calls
+    return report, fused_calls, flash_calls, up2_calls
 
 
 def sample_opt():
@@ -2463,7 +2611,7 @@ def run_infer(profile, faces):
     argv = ["-c", cfg, "-p", "val", "--process_mode", "grid", "--experiments_root",
             os.path.join(root, "exp")]
     log(f"[{INFER}] python -m hsi_dmgasr_tpu_torch.cli.infer {' '.join(argv)}")
-    images, models, fused_calls, flash_calls = [], [], {}, {}
+    images, models, fused_calls, flash_calls, up2_calls = [], [], {}, {}, {}
     real_sr = DDPMModel.super_resolution
 
     def counted(self, cond, *a, **kw):
@@ -2476,12 +2624,10 @@ def run_infer(profile, faces):
         models.append(self)
         return out
 
-    fc.LAUNCHES = 0
-    fa.LAUNCHES = 0
-    bd.LAUNCHES = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with recording(fused_calls, flash_calls), \
+    with recording(fused_calls, flash_calls, up2_calls), \
             mock.patch.object(DDPMModel, "super_resolution", counted):
         infer.main(argv)
     torch.cuda.synchronize()
@@ -2502,6 +2648,7 @@ def run_infer(profile, faces):
                              f"per image")
     if any(not im["finite"] or im["shape"] != (frames, 128, 128, 3) for im in images):
         raise AssertionError(f"[{INFER}] chain outputs {images}")
+    launches[UP2] = up2_launches(INFER, want[FUSED] // BLOCKS_PER_FORWARD, up2_calls)
     results = os.path.join(root, "exp", "results")
     grid = (int(math.sqrt(frames)) * 128, math.ceil(frames / int(math.sqrt(frames))) * 128, 3)
     decoded_pngs(results, {f"{i}_{n}.png": (grid if n == "sr_process" else (128, 128, 3))
@@ -2582,7 +2729,7 @@ def run_infer(profile, faces):
             f"idle share {prof['idle_share']:.4f}")
     del models, model, unet
     torch.cuda.empty_cache()
-    return report, fused_calls, flash_calls
+    return report, fused_calls, flash_calls, up2_calls
 
 
 def run_sample_cli(faces):
@@ -2741,7 +2888,7 @@ def run_probe():
 
 
 def no_launches(name, launches):
-    if launches != {FUSED: 0, FLASH: 0, DOT: 0}:
+    if launches != {FUSED: 0, FLASH: 0, DOT: 0, UP2: 0}:
         raise AssertionError(f"[{name}] launched {launches}, expected no kernel")
 
 
@@ -2749,8 +2896,10 @@ def kernel_counts():
     from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.kernels import up2_conv
 
-    return {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
+    return {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES,
+            UP2: up2_conv.LAUNCHES_BY_ROUTE["kernel"]}
 
 
 def zero_counts():
@@ -2759,6 +2908,7 @@ def zero_counts():
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
 
     fc.LAUNCHES = fa.LAUNCHES = bd.LAUNCHES = 0
+    zero_up2()
 
 
 def golden_on_card(name, model_cls, prefix="sd::", kind=None, kw=None, atol=2e-5, **select):
@@ -3268,7 +3418,7 @@ def r3_dp_rank(rank, device, weights, seed):
     cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0),
                       device="cuda")
     with mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
-        out, secs, peak_gib, launches, fused_calls, flash_calls = counted_run(
+        out, secs, peak_gib, launches, fused_calls, flash_calls, up2_calls = counted_run(
             f"{R3_DP}:rank{rank}", R3_DP_PER_RANK,
             lambda: pipe.super_resolve(cube, generator=torch.Generator(
                 device="cuda").manual_seed(seed)))
@@ -3284,7 +3434,8 @@ def r3_dp_rank(rank, device, weights, seed):
         raise AssertionError(f"[{R3_DP}] rank {rank} launched at batch sizes {batches}, "
                              "expected 5 (9 latents wrap-padded to 10 over 2 ranks)")
     return {"mesh": mesh.n_data, "launches": launches, "fused_calls": fused_calls,
-            "flash_calls": flash_calls, "gathered_bytes": dict(mesh.gathered),
+            "flash_calls": flash_calls, "up2_calls": up2_calls,
+            "gathered_bytes": dict(mesh.gathered),
             "peak_memory_gib": peak_gib, "counted_seconds": secs, "seconds": timed,
             "latent": decode.call_args[0][0].cpu()}
 
@@ -3332,12 +3483,13 @@ def run_r3_dp():
         f"{TOL_UNET})")
     if not latents_equal or not within(ranks[0]["latent"], single, TOL_UNET):
         raise AssertionError(f"[{R3_DP}] latents equal {latents_equal}, vs single {err}")
-    fused_calls, flash_calls = {}, {}
+    fused_calls, flash_calls, up2_calls = {}, {}, {}
     for r in ranks:
-        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"])):
+        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"]),
+                            (up2_calls, r["up2_calls"])):
             for sig, n in calls.items():
                 mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH)}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2)}
     report = {"config": config, "note": TWO_RANKS, "launches": launches,
               "launches_per_rank": [r["launches"] for r in ranks],
               "cube_seconds": [r["seconds"] for r in ranks],
@@ -3350,7 +3502,7 @@ def run_r3_dp():
         f"per rank {[round(g, 2) for g in report['peak_memory_gib']]} GiB; bytes gathered "
         f"{report['gathered_bytes_per_cube']}; launches per rank {report['launches_per_rank']}; "
         f"the ranks took {secs:.1f} s in all")
-    return report, fused_calls, flash_calls
+    return report, fused_calls, flash_calls, up2_calls
 
 
 def _state_digest(tensors):
@@ -3457,7 +3609,7 @@ def train_dp_rank(rank, device, opt, weights, one_rank):
                      generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
     synchronize()  # rank 0 compared its state first: start the timed cube together
     with mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
-        out, secs, _, launches, fused_calls, flash_calls = counted_run(
+        out, secs, _, launches, fused_calls, flash_calls, up2_calls = counted_run(
             f"{TRAIN_DP}:rank{rank}", TRAIN_DP_VAL_PER_RANK,
             lambda: pipe.super_resolve(val, generator=torch.Generator(
                 device="cuda").manual_seed(6)))
@@ -3465,7 +3617,7 @@ def train_dp_rank(rank, device, opt, weights, one_rank):
     return {"mesh": ddpm.mesh.n_data, "losses": losses, "times": times, "peak_memory_gib": peak_gib,
             "train_launches": train_launches, "worst_leaf_rel_err": worst, "digest": digest,
             "reduced_bytes": reduced, "val_launches": launches, "val_seconds": secs,
-            "fused_calls": fused_calls, "flash_calls": flash_calls,
+            "fused_calls": fused_calls, "flash_calls": flash_calls, "up2_calls": up2_calls,
             "val_latent": decode.call_args[0][0].cpu()}
 
 
@@ -3530,12 +3682,13 @@ def run_train_r3_dp(dirs, gae_ckpt):
     if not alike or not val_equal or off or loss_err > TOL_STEP_LOSS:
         raise AssertionError(f"[{TRAIN_DP}] alike {alike}, val {val_equal}, worst {worst}, "
                              f"loss {loss_err}")
-    fused_calls, flash_calls = {}, {}
+    fused_calls, flash_calls, up2_calls = {}, {}, {}
     for r in ranks:
-        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"])):
+        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"]),
+                            (up2_calls, r["up2_calls"])):
             for sig, n in calls.items():
                 mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["val_launches"][k] for r in ranks) for k in (FUSED, FLASH)}
+    launches = {k: sum(r["val_launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2)}
     step_ms = [statistics.median(r["times"][1:]) * 1e3 for r in ranks]
     reduced = [r["reduced_bytes"].get("gradients", 0) / TRAIN_DP_STEPS for r in ranks]
     report = {"note": TWO_RANKS, "steps": TRAIN_DP_STEPS, "latents_per_step": TRAIN_DP_CROPS * 9,
@@ -3550,7 +3703,7 @@ def run_train_r3_dp(dirs, gae_ckpt):
         f"{[round(g, 2) for g in report['peak_memory_gib']]} GiB (one rank {one_peak:.2f}); bytes "
         f"all-reduced a step per rank {reduced}; validation launches {launches}; the ranks took "
         f"{secs:.1f} s in all")
-    return report, fused_calls, flash_calls
+    return report, fused_calls, flash_calls, up2_calls
 
 
 def kernel_entry(name, source, replaces, rows, launches):
@@ -3643,10 +3796,11 @@ def main():
     torch.cuda.empty_cache()
     report["paths"][DAQ] = run_daq_refiners()
     report["color_correction_max_abs"] = check_color_correction()
-    fused_sigs, flash_sigs = {}, {}
-    for path, (path_report, fused_calls, flash_calls) in runs.items():
+    fused_sigs, flash_sigs, up2_sigs = {}, {}, {}
+    for path, (path_report, fused_calls, flash_calls, up2_calls) in runs.items():
         report["paths"][path] = path_report
-        for sigs, calls in ((fused_sigs, fused_calls), (flash_sigs, flash_calls)):
+        for sigs, calls in ((fused_sigs, fused_calls), (flash_sigs, flash_calls),
+                            (up2_sigs, up2_calls)):
             for sig, n in calls.items():
                 sigs.setdefault(sig, dict.fromkeys(UNET_PATHS, 0))[path] = n
     report["paths"][PROBE] = probe = run_probe()
@@ -3696,8 +3850,9 @@ def main():
             f"{row['library_ms'] * 1e3:.3f} bound {row['bound_ms'] * 1e3:.3f} ({row['bound_by']}) "
             f"of bound {row['bound_frac']:.3f} TOP/s {row['tops']:.1f} x library "
             f"{row['vs_library']:.2f} | chain us/dot {row['chain_us_per_dot']}")
+    up2 = up2_rows(up2_sigs)
     report["fused_signatures"], report["flash_signatures"] = fused_rows, flash_rows
-    report["dot_signatures"] = dot_rows
+    report["dot_signatures"], report["up2_signatures"] = dot_rows, up2
     for path in UNET_PATHS:
         levels = {}
         for r in fused_rows:
@@ -3732,6 +3887,9 @@ def main():
         kernel_entry(FLASH, "hsi_dmgasr_tpu_torch/csrc/flash_attention.cu",
                      "hsi_dmgasr_tpu/kernels/flash_attention.py:119", flash_rows,
                      launches(FLASH)),
+        kernel_entry(UP2, "hsi_dmgasr_tpu_torch/csrc/up2_conv.cu",
+                     "none (hsi_dmgasr_tpu/ops/fused_up.py:up2_conv3x3 is XLA's)", up2,
+                     launches(UP2)),
         kernel_entry(DOT, "hsi_dmgasr_tpu_torch/csrc/blocked_dot.cu",
                      "tools/microbench_int8.py:88", dot_rows,
                      {PROBE: probe["launches"][DOT],

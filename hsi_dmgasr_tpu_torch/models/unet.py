@@ -67,9 +67,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
+from ..kernels import up2_conv
 from ..kernels.fused_conv import gn_swish_conv3x3, gn_swish_conv3x3_thin, pack_conv3x3
 from ..ops.blocks import Conv2d
-from ..ops.fused_up import up2_conv3x3
+from ..ops.fused_up import parity_taps, up2_conv3x3
 from ..parallel.spatial import (conv3x3_spatial, exchange_halo, gather_rows,
                                 up2_conv3x3_spatial)
 from ..utils.profiling import traced
@@ -477,14 +478,25 @@ class Upsample(nn.Module):
     def __init__(self, dim):
         super().__init__()
         self.conv = Conv2d(dim, dim, 3)
+        self._packed = None
+        self._packed_key = None
+
+    def _pack(self, kernel):
+        w = self.conv.weight
+        key = (w.data_ptr(), w._version, w.device)
+        if key != self._packed_key:
+            self._packed = up2_conv.pack_up2(parity_taps(kernel))
+            self._packed_key = key
+        return self._packed
 
     @traced("unet.up_conv")
     def forward(self, x, fused=False, spatial=None):
+        kernel = self.conv.weight.permute(2, 3, 1, 0)
         if spatial is not None:
-            return up2_conv3x3_spatial(x, self.conv.weight.permute(2, 3, 1, 0), self.conv.bias,
-                                       spatial)
+            return up2_conv3x3_spatial(x, kernel, self.conv.bias, spatial)
         if fused:
-            return up2_conv3x3(x, self.conv.weight.permute(2, 3, 1, 0), self.conv.bias)
+            packed = self._pack(kernel) if up2_conv.takes(x, kernel) else None
+            return up2_conv3x3(x, kernel, self.conv.bias, packed=packed)
         up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
         return self.conv(up.permute(0, 2, 3, 1))
 

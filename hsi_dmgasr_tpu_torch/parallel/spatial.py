@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_up import up2_conv3x3
+from ..ops.fused_up import up2_conv3x3_transpose
 from .mesh import gather
 
 
@@ -78,12 +78,12 @@ def conv3x3_spatial(x, kernel, bias, mesh, stride=1):
 
 
 def up2_conv3x3_spatial(x, kernel, bias, mesh):
-    """nearest-x2 + conv3x3 of an H-shard: ``up2_conv3x3`` of the shard
+    """nearest-x2 + conv3x3 of an H-shard: ``up2_conv3x3_transpose`` of the shard
     extended by one halo row each side gives 2 * (H_loc + 2) rows, of
     which rows 2 .. 2 * H_loc + 1 are the global op's rows of this shard
     (the two extra rows each side only ever saw the halo)."""
     h = x.shape[1]
-    return up2_conv3x3(_extended(x, mesh), kernel, bias)[:, 2:2 + 2 * h].contiguous()
+    return up2_conv3x3_transpose(_extended(x, mesh), kernel, bias)[:, 2:2 + 2 * h].contiguous()
 
 
 def gather_rows(x, mesh, kind):

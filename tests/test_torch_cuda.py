@@ -20,14 +20,23 @@ about 1e-4 at the main path's shape on an H100. The peaked softmax,
 whose outputs are near 1, keeps atol 1e-2 (see its docstring). The
 blocked dot's int8 sums are exact int32 and are held bit for bit; its
 bf16 sums are f32 in another order than the plain version's float64,
-on outputs of about sqrt(K) = 14-24: atol 1e-3, rtol 1e-4.
+on outputs of about sqrt(K) = 14-24: atol 1e-3, rtol 1e-4. The up path's
+kernel is held to cuDNN's f32 transposed conv (TF32 off), to its plain
+version and to the JAX package's output kept in a golden, elementwise
+within 2e-5 of sum |x| |w| over each output's taps:
+its bf16 hi + lo products leave out terms below 3 x 2^-18 (1.1e-5) of it,
+and its f32 sums run in another order (about 1e-6; the largest measured on
+an H100 was 2.4e-6).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from hsi_dmgasr_tpu_torch.kernels import attention, blocked_dot, flash_attention, fused_conv
+from hsi_dmgasr_tpu_torch.kernels import (attention, blocked_dot, flash_attention, fused_conv,
+                                          up2_conv)
+from hsi_dmgasr_tpu_torch.ops import fused_up
+from hsi_dmgasr_tpu_torch.parallel import spatial
 from hsi_dmgasr_tpu_torch.tools import microbench_int8
 
 pytestmark = pytest.mark.cuda
@@ -475,3 +484,102 @@ def test_thin_block_on_the_card_matches_the_cpu(dev):
     cpu = fused_conv.gn_swish_conv3x3_thin(*args, num_groups=32)
     card = fused_conv.gn_swish_conv3x3_thin(*(a.to(dev) for a in args), num_groups=32)
     torch.testing.assert_close(card.cpu(), cpu, atol=1e-5, rtol=1e-5)
+
+
+# ----------------------------------------------------------- the up path kernel
+
+UP2_TOL = 2e-5
+# (H = W, C, Cout) of the UNet's four up levels, and odd shapes, Cout != C
+UP2_LEVELS = [(32, 512, 512), (64, 512, 512), (128, 256, 256), (256, 128, 128)]
+UP2_ODD = [(1, 5, 7, 32, 64), (2, 9, 33, 64, 128), (1, 3, 70, 32, 36), (2, 17, 40, 96, 200)]
+
+
+def _up2_case(b, h, w, c, cout, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=g, device=dev)
+    kernel = torch.randn((3, 3, c, cout), generator=g, device=dev) / np.sqrt(9 * c)
+    bias = torch.randn((cout,), generator=g, device=dev)
+    return x, kernel, bias
+
+
+def _up2_within(got, want, x, kernel):
+    scale = fused_up.up2_conv3x3_transpose(x.abs(), kernel.abs())
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert ((got - want).abs() <= UP2_TOL * scale).all()
+
+
+def _up2_kernel_call(x, kernel, bias):
+    before = dict(up2_conv.LAUNCHES_BY_ROUTE)
+    got = fused_up.up2_conv3x3(x, kernel, bias)
+    assert up2_conv.LAUNCHES_BY_ROUTE == {"kernel": before["kernel"] + 1,
+                                          "transpose": before["transpose"]}
+    return got
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("b", [9, 1])
+@pytest.mark.parametrize("level", UP2_LEVELS)
+def test_up2_kernel_matches_cudnn_f32(dev, level, b, with_bias):
+    res, c, cout = level
+    x, kernel, bias = _up2_case(b, res, res, c, cout, dev)
+    bias = bias if with_bias else None
+    got = _up2_kernel_call(x, kernel, bias)
+    _up2_within(got, fused_up.up2_conv3x3_transpose(x, kernel, bias), x, kernel)
+
+
+@pytest.mark.parametrize("shape", UP2_ODD)
+def test_up2_kernel_at_odd_shapes_matches_plain_and_cudnn(dev, shape):
+    x, kernel, bias = _up2_case(*shape, dev, seed=1)
+    got = _up2_kernel_call(x, kernel, bias)
+    _up2_within(got, fused_up.up2_conv3x3_transpose(x, kernel, bias), x, kernel)
+    _up2_within(got, fused_up.up2_conv3x3_parity(x, kernel, bias), x, kernel)
+
+
+def test_up2_bf16_cpu_and_spatial_keep_the_transpose_route(dev, monkeypatch):
+    x, kernel, bias = _up2_case(1, 8, 8, 32, 32, dev)
+    before = dict(up2_conv.LAUNCHES_BY_ROUTE)
+    half = [t.bfloat16() for t in (x, kernel, bias)]
+    got = fused_up.up2_conv3x3(*half)
+    # cuDNN may take another algorithm on the next call: bf16's 2^-8 apart
+    torch.testing.assert_close(got.float(), fused_up.up2_conv3x3_transpose(*half).float(),
+                               atol=1e-2, rtol=1e-2)
+    assert got.dtype == torch.bfloat16
+    cpu = [t.cpu() for t in (x, kernel, bias)]
+    assert torch.equal(fused_up.up2_conv3x3(*cpu), fused_up.up2_conv3x3_transpose(*cpu))
+    assert up2_conv.LAUNCHES_BY_ROUTE == {"kernel": before["kernel"],
+                                          "transpose": before["transpose"] + 2}
+    # an H-shard at both true edges: its halo rows are zeros
+    monkeypatch.setattr(spatial, "_extended",
+                        lambda t, mesh: torch.nn.functional.pad(t, (0, 0, 0, 0, 1, 1)))
+    got = spatial.up2_conv3x3_spatial(x, kernel, bias, mesh=None)
+    assert up2_conv.LAUNCHES_BY_ROUTE["kernel"] == before["kernel"]
+    _up2_within(got, fused_up.up2_conv3x3_transpose(x, kernel, bias), x, kernel)
+
+
+@pytest.mark.parametrize("c,cout", [(48, 32), (64, 30)])
+def test_up2_channels_the_tiles_do_not_take(dev, c, cout):
+    x, kernel, bias = _up2_case(1, 8, 8, c, cout, dev)
+    before = dict(up2_conv.LAUNCHES_BY_ROUTE)
+    got = fused_up.up2_conv3x3(x, kernel, bias)  # the router falls back
+    assert up2_conv.LAUNCHES_BY_ROUTE == {"kernel": before["kernel"],
+                                          "transpose": before["transpose"] + 1}
+    # cuDNN's f32 transposed conv, which may take another algorithm on the next call
+    _up2_within(got, fused_up.up2_conv3x3_transpose(x, kernel, bias), x, kernel)
+    with pytest.raises(ValueError):  # the wrapper refuses
+        up2_conv.up2_conv3x3(x, up2_conv.pack_up2(fused_up.parity_taps(kernel)), bias)
+
+
+
+@pytest.mark.parametrize("name", ["nobias", "odd"])
+def test_up2_kernel_matches_the_jax_package(dev, name):
+    """The kernel against the JAX package's up2_conv3x3 of the same x, kernel
+    and bias: its output is kept in tests/golden/up2_conv3x3_golden.npz,
+    made on the CPU, where tests/test_torch_fused_up.py holds it to the JAX
+    package."""
+    import os
+
+    g = np.load(os.path.join(os.path.dirname(__file__), "golden", "up2_conv3x3_golden.npz"))
+    x, kernel = (torch.from_numpy(g[f"{name}.{k}"]).to(dev) for k in ("x", "kernel"))
+    bias = torch.from_numpy(g[f"{name}.bias"]).to(dev) if f"{name}.bias" in g.files else None
+    got = _up2_kernel_call(x, kernel, bias)
+    _up2_within(got, torch.from_numpy(g[f"{name}.out"]).to(dev), x, kernel)
