@@ -13,7 +13,8 @@ res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16, n_ovls 4, n_feats
 
   * configs/pavia_x4_r3.json: image_size 128, the chain entered at
     t_start=4, latent affine; attention at 64^2 and 32^2 stays below the
-    flash gate. f32 activations. 220 fused-Block launches per cube.
+    flash gate, on the split kernel (24 launches). f32 activations. 220
+    fused-Block launches per cube.
   * pavia_x4_r3_ddim: the same config with the DDIM sampler (4 steps,
     eta 0, from noise: t_start removed, as the JAX package refuses it
     with DDIM). 220 fused-Block launches per cube; one chain from a
@@ -115,8 +116,8 @@ the port's own PNG writer puts under build/faces:
     model.unet.fuse on, over 2 images. Cut: the val schedule's 2000 steps
     to 200 (cosine), fixed. Every Block of every reverse step is the
     fused kernel: 55 x 200 = 11000 launches per image at B=1, 128^2 ...
-    8^2; attention at 16^2 and in the mid block stays on the einsum
-    route. Then cli.eval over the written pairs.
+    8^2; attention at 16^2 and in the mid block takes the split kernel.
+    Then cli.eval over the written pairs.
   * sample_cli_ddpm_16: cli.sample on configs/sample_ddpm_16.json at full
     width, -p train for 4 steps of the 4 images (a checkpoint and a
     sample at step 4), then -p val resuming that checkpoint. Cut: both
@@ -164,7 +165,9 @@ kernels.
     on one 512^2 x 102 cube; post_unet(102, 102) at its defaults on 4 x
     128^2 x 102; Codebook(4096, 512) on 1024 vectors. Each forward on the
     card against the CPU's (the DAQ blocks and the codebook in f64), one
-    f64 step card against CPU, ms per f32 step and peak memory.
+    f64 step card against CPU, ms per f32 step and peak memory. Every
+    attention call is recorded and held to the router's counts: the split
+    kernel runs in post_unet's f32 forward, and nowhere else in the zoo.
 
 In order:
 
@@ -252,7 +255,10 @@ In order:
     q, k and v as well, each flash shape with the prepass's and the
     attention kernel's device times (torch.profiler, which must see one
     launch of each per call) and the einsum route's time beside it; the
-    blocked dot at each probe case and dtype, with its share of the bound,
+    split attention kernel at each f32 signature the paths recorded,
+    within TOL_SPLIT of its plain version, with each phase's time, the
+    plain version's and the einsum route's (daq_refiners' post_unet
+    signatures too); the blocked dot at each probe case and dtype, with its share of the bound,
     TOP/s and ratio to the library call, and a 3-link captured chain
     against the same chain run eagerly; the up path's kernel at each f32
     signature recorded (the four up levels at B=9, 5, 1, 12 and 36 and at
@@ -304,6 +310,14 @@ GAE_CFG = {"n_subs": 16, "n_ovls": 4, "n_colors": 102, "n_feats": 64, "G": 9}
 CUBE = (1, 512, 512, 102)
 FUSED, FLASH, DOT = "gn_swish_conv3x3", "flash_attention", "blocked_dot"
 UP2 = "up2_conv3x3"
+# the f32 attention kernel below the flash gate (kernels/split_attention.py),
+# routed by kernels/attention.py:route (SPLIT_PER_RUN below)
+SPLIT = "split_attention"
+# path -> {(shape, dtype name): calls} of the split kernel in its counted run
+SPLIT_SIGS = {}
+# (shape, dtype, records grad, on CUDA) -> calls of spatial_attention since
+# zero_attention()
+_ATTN_CALLS = {}
 # calls of ops/fused_up.py:up2_conv3x3 per fused UNet forward (one Upsample
 # each of the four levels up), whose router launches the up path's kernel
 # for f32 and takes cuDNN's transposed conv for bf16
@@ -333,8 +347,8 @@ BENCH_PATHS = {BENCH: {FUSED: 220, FLASH: 0}, BENCH_FULL: {FUSED: 1100, FLASH: 0
 # stage-2 training under configs/pavia_x4_r3.json through the port's driver:
 # TRAIN_STEPS steps (no kernel launch: training runs the unfused autograd
 # UNet), then one validation of 3 scenes x 3 chains, each 55 fused Blocks
-# per UNet forward x t_start=4 at 128^2 ... 8^2 (attention at 16^2, on the
-# einsum route)
+# per UNet forward x t_start=4 at 128^2 ... 8^2 (attention at 16^2 and 8^2,
+# on the split kernel)
 TRAIN, TRAIN_STEPS = "train_r3", 12
 TRAIN_VAL = {FUSED: 55 * 4 * 3 * 3, FLASH: 0}
 TRAIN_SCENES, TRAIN_SCENE_HW, VAL_HW = 8, 256, 128
@@ -343,7 +357,7 @@ TRAIN_SCENES, TRAIN_SCENE_HW, VAL_HW = 8, 256, 128
 # val split is INFER_IMAGES seeded 128^2 face-like PNGs; each image's
 # continous chain runs the val schedule cut to INFER_T steps (cosine), 55
 # fused Blocks per UNet forward at B=1 (attention at 16^2 and the mid block,
-# on the einsum route); INFER_REPLAY steps replayed kernels against plain
+# on the split kernel); INFER_REPLAY steps replayed kernels against plain
 INFER, INFER_IMAGES, INFER_T, INFER_REPLAY = "infer_sr3_16_128", 2, 200, 4
 INFER_PER_IMAGE = {FUSED: 55 * INFER_T, FLASH: 0}
 # H-sharded inference (super_resolve_spatial) under configs/pavia_x4.json on
@@ -422,6 +436,12 @@ TRAIN_DP_VAL_PER_RANK = {FUSED: 220, FLASH: 0}
 TOL_TRAIN_DP_ADAM, TRAIN_DP_SHARE_OFF = 1e-2, 1e-2
 UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN, INFER, SPATIAL, *CHUNK_PATHS, TILED, R3_DP,
               TRAIN_DP)
+# the split kernel's launches per counted run (or rank) where the path fixes
+# them: r3 5 calls at 64^2 and the mid block at 32^2 per UNet forward x 4,
+# x4 the mid block x 20; the bf16 rows keep the einsum route
+SPLIT_PER_RUN = {R3: 24, R3_DDIM: 24, "pavia_x4": 20, CHUNKED: 3 * 24, CHUNKED_WHOLE: 24,
+                 TILED: len(TILE_ORIGINS) * 24, BENCH: 0, BENCH_FULL: 0}
+SPLIT_PER_RANK = {SPATIAL: 20, R3_DP: 24}
 # train_r3's step with model.unet.remat on, against the same step without it
 # from the same weights, batch and dropout generator: the loss and every
 # gradient leaf within tests/test_remat.py's atol 1e-4 and rtol 1e-3; then
@@ -499,9 +519,13 @@ GAN3D, GAN3D_STEPS, GAN3D_SCENES, GAN3D_HW = "gan3d_x4", 3, 2, 512
 # a_bit = w_bit in DAQ_BITS on DAQ_CROPS crops of DAQ_HW^2 (forward and
 # backward); AttentionNet(102, 64) on one 512^2 x 102 cube; post_unet(102,
 # 102) at its defaults (inner 8, image_size 128) on 4 x 128^2 x 102 in train
-# mode; Codebook(4096, 512) on 1024 vectors. No kernel of the port runs.
+# mode; Codebook(4096, 512) on 1024 vectors. No kernel of the port runs but
+# the split attention kernel, in post_unet's f32 forward on the card.
 DAQ, DAQ_CROPS, DAQ_HW, DAQ_FEATS, DAQ_BITS, DAQ_HELD = "daq_refiners", 16, 128, 64, (4, 8), 4
-ZOO_PATHS = (BASELINES, GAN3D, DAQ)  # no kernel of the port: each reads 0 launches of all three
+# no kernel of the port, but for the split attention kernel in post_unet's forward (DAQ)
+ZOO_PATHS = (BASELINES, GAN3D, DAQ)
+# the paths whose split kernel signatures are checked, timed and counted
+SPLIT_PATHS = (*UNET_PATHS, DAQ)
 # flash checks beside the path's own shape: D=128 (two heads) and D=512
 # with a ragged S, both past the 8192-token gate, and pavia_x4_r3's 64^2
 # attention (4096 tokens, D=512), which the gate keeps on the einsum path:
@@ -523,6 +547,10 @@ TOL_STATS = 1e-3    # max |diff| / max |plain| on the per-row moments
 TOL_FLASH_ABS, TOL_FLASH_REL = 1e-3, 1e-2
 # full UNet forward, the JAX package's fused-UNet tolerance: atol = rtol
 TOL_UNET = 3e-2
+# the split attention kernel vs its plain version, elementwise: 2^-16 of
+# (1 + 2 A_i) W_id, A_i the row's largest sum |q||k| * scale, W_id =
+# sum_j p_ij |v_jd| (kernels/split_attention.py:split_bound derives it)
+TOL_SPLIT = 2.0 ** -16
 # training: the EMA against its recomputation from per-step snapshots (max
 # |diff| / max |want| per leaf), and one step on the card against the same
 # step on the CPU (loss relative; gradients atol 1e-3 of the largest |g|)
@@ -617,7 +645,27 @@ def recording(fused_calls, flash_calls, up2_calls):
 
     with mock.patch.object(unet_mod, "gn_swish_conv3x3", rec_fused), \
             mock.patch.object(attn_mod, "flash_attention", rec_flash), \
-            mock.patch.object(unet_mod, "up2_conv3x3", rec_up2):
+            mock.patch.object(unet_mod, "up2_conv3x3", rec_up2), attention_recording():
+        yield
+
+
+@contextmanager
+def attention_recording():
+    """Record every UNet attention call (shape, dtype, whether it records a
+    graph, whether on CUDA) into _ATTN_CALLS, for ``attention_routes``."""
+    from hsi_dmgasr_tpu_torch.models import unet as unet_mod
+
+    real_attn = unet_mod.spatial_attention
+
+    def rec_attn(q, k, v, scale, **kw):
+        import torch
+
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        key = (tuple(q.shape), q.dtype, grad, q.is_cuda)
+        _ATTN_CALLS[key] = _ATTN_CALLS.get(key, 0) + 1
+        return real_attn(q, k, v, scale, **kw)
+
+    with mock.patch.object(unet_mod, "spatial_attention", rec_attn):
         yield
 
 
@@ -627,6 +675,7 @@ def plain_kernels():
     from hsi_dmgasr_tpu_torch.kernels import attention as attn_mod
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
     from hsi_dmgasr_tpu_torch.kernels import up2_conv
     from hsi_dmgasr_tpu_torch.models import unet as unet_mod
     from hsi_dmgasr_tpu_torch.ops import fused_up
@@ -641,7 +690,8 @@ def plain_kernels():
 
     with mock.patch.object(unet_mod, "gn_swish_conv3x3", plain), \
             mock.patch.object(unet_mod, "up2_conv3x3", plain_up), \
-            mock.patch.object(attn_mod, "flash_attention", fa.flash_attention_plain):
+            mock.patch.object(attn_mod, "flash_attention", fa.flash_attention_plain), \
+            mock.patch.object(attn_mod, "split_attention", sa.split_attention_plain):
         yield
 
 
@@ -1069,6 +1119,71 @@ def check_flash(sig, seed):
             "einsum_ms": einsum_ms, "tflops": flops / ms / 1e9}
 
 
+def split_times(q, k, v, scale, rounds=5):
+    """Mean milliseconds of the split kernel's wrapper, of each of its C
+    entry's phases alone (the split, the logits, p . v, each on what the
+    others wrote into one set of buffers) and of the einsum route, CUDA
+    events around each call, interleaved over ``rounds`` rounds after one
+    untimed call of each (see flash_times)."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import attention as attn
+    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
+
+    bufs = sa.buffers(q)
+    calls = {"ms": lambda: sa.split_attention(q, k, v, scale),
+             "split_ms": lambda: sa.run_phases(q, k, v, scale, *bufs, 1),
+             "logits_ms": lambda: sa.run_phases(q, k, v, scale, *bufs, 2),
+             "pv_ms": lambda: sa.run_phases(q, k, v, scale, *bufs, 4),
+             "einsum_ms": lambda: attn._einsum_attention(q, k, v, scale)}
+    for fn in calls.values():
+        fn()
+    events = []
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((name, start, end))
+    torch.cuda.synchronize()
+    times = dict.fromkeys(calls, 0.0)
+    for name, start, end in events:
+        times[name] += start.elapsed_time(end) / rounds
+    return times
+
+
+def check_split(sig, seed):
+    """The split attention kernel vs its plain version on the card
+    (TOL_SPLIT), on strided q, k, v views of one f32 qkv tensor as the UNet
+    makes them; its times (split_times), the plain version's, and the
+    einsum route's as the yardstick (the route it replaced)."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
+
+    (b, s, h, d), dt = sig
+    q, k, v, scale = flash_inputs(sig, seed)
+    got = sa.split_attention(q, k, v, scale)
+    want = sa.split_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    diff = (got - want).abs().double()
+    bound = sa.split_bound(q, k, v, scale)
+    err = {"max_abs": diff.max().item(), "max_rel": diff.max().item() / want.abs().max().item(),
+           "of_bound": (diff / bound).max().item()}
+    if not bool((diff <= TOL_SPLIT * bound).all()):
+        raise AssertionError(f"split {sig}: kernel vs plain {err}")
+    del got, want, diff, bound
+    torch.cuda.empty_cache()
+    t = split_times(q, k, v, scale)
+    plain_ms = cuda_ms(lambda: sa.split_attention_plain(q, k, v, scale), reps=2)
+    flops = 4 * b * h * s * s * d
+    b_ms, b_by = pick_bound(4 * q.element_size() * b * s * h * d, flops)
+    return {"signature": f"{dt} B={b} S={s} H={h} D={d}", "errors": {"out": err},
+            "plain_ms": plain_ms, "library_ms": t["einsum_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "tflops": flops / t["ms"] / 1e9, **t}
+
+
 def check_dot(case, dt, seed):
     """Blocked dot vs its plain version on the card at one probe case
     (int8 bit for bit), a 3-link chain captured in a CUDA graph vs the
@@ -1341,6 +1456,7 @@ def spatial_rank(rank, device, weights, timed_seed):
     fa.LAUNCHES = 0
     bd.LAUNCHES = 0
     zero_up2()
+    zero_attention()
     mesh.gathered.clear()
     torch.cuda.reset_peak_memory_stats()
     with recording(fused_calls, flash_calls, up2_calls), \
@@ -1355,13 +1471,16 @@ def spatial_rank(rank, device, weights, timed_seed):
                              f"launches per cube, expected {SPATIAL_PER_RANK} and none")
     # an H-shard's up path is up2_conv3x3_spatial's transposed conv, not the router
     launches[UP2] = up2_launches(f"{SPATIAL}:rank{rank}", 0, up2_calls)
+    routes, split_calls = attention_routes(f"{SPATIAL}:rank{rank}", SPLIT_PER_RANK[SPATIAL])
+    launches[SPLIT] = routes["split"]
     check_cube(SPATIAL, out, CUBE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sharded_cube(timed_seed)
     torch.cuda.synchronize()
     return {"launches": launches, "fused_calls": fused_calls, "flash_calls": flash_calls,
-            "up2_calls": up2_calls, "gathered_bytes": gathered, "peak_memory_gib": peak_gib,
+            "up2_calls": up2_calls, "split_calls": split_calls,
+            "gathered_bytes": gathered, "peak_memory_gib": peak_gib,
             "cube_seconds": time.perf_counter() - t0,
             "latent": decode.call_args[0][0].cpu(), "cube": out.cpu()}
 
@@ -1430,7 +1549,8 @@ def run_spatial():
                             (up2_calls, r["up2_calls"])):
             for sig, n in calls.items():
                 mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2)}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2, SPLIT)}
+    SPLIT_SIGS[SPATIAL] = merged_split(ranks)
     times = [r["cube_seconds"] for r in ranks]
     report = {"mesh": SPATIAL_MESH, "note": TWO_RANKS, "launches": launches,
               "launches_per_rank": [r["launches"] for r in ranks],
@@ -1473,6 +1593,54 @@ def up2_launches(name, forwards, up2_calls):
     return routes["kernel"]
 
 
+def zero_attention():
+    """The attention router's counts, the split kernel's launches and the
+    recorded attention calls to 0."""
+    from hsi_dmgasr_tpu_torch.kernels import attention
+    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
+
+    attention.LAUNCHES_BY_ROUTE.update(dict.fromkeys(attention.LAUNCHES_BY_ROUTE, 0))
+    sa.LAUNCHES = 0
+    _ATTN_CALLS.clear()
+
+
+def attention_routes(name, expected_split=None):
+    """The attention calls since ``zero_attention``: the router's counts
+    held to the route ``attention.route`` gives each call ``recording``
+    recorded (so every CUDA f32 call below the flash gate that records no
+    graph, at a shape the split kernel takes, launched it), the split
+    kernel's launches to its route's count and, where given, to
+    ``expected_split``. Returns the routes and the split kernel's
+    signatures {(shape, dtype name): calls}."""
+    from hsi_dmgasr_tpu_torch.kernels import attention
+    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
+
+    want, split = dict.fromkeys(attention.LAUNCHES_BY_ROUTE, 0), {}
+    for (shape, dtype, grad, cuda), n in _ATTN_CALLS.items():
+        route = attention.route(dtype, cuda, shape[1], shape[3], grad, shape[0] * shape[2])
+        want[route] += n
+        if route == "split":
+            sig = (shape, dtype_name(dtype))
+            split[sig] = split.get(sig, 0) + n
+    routes = dict(attention.LAUNCHES_BY_ROUTE)
+    log(f"[{name}] attention routes {routes}, split kernel launches {sa.LAUNCHES}")
+    if (routes != want or sa.LAUNCHES != routes["split"]
+            or (expected_split is not None and routes["split"] != expected_split)):
+        raise AssertionError(f"[{name}] attention routes {routes} ({sa.LAUNCHES} split launches), "
+                             f"the recorded calls' routes {want}, expected {expected_split} "
+                             "split launches")
+    return routes, split
+
+
+def merged_split(ranks):
+    """The split kernel's signatures summed over ranks' reports."""
+    mine = {}
+    for r in ranks:
+        for sig, n in r["split_calls"].items():
+            mine[sig] = mine.get(sig, 0) + n
+    return mine
+
+
 def counted_run(name, expected, run):
     """One main-path run: the launch counts set to 0 and the peak memory
     reset just before ``run()``, its launch signatures recorded, the exact
@@ -1490,6 +1658,7 @@ def counted_run(name, expected, run):
     bd.LAUNCHES = 0
     fc.LAUNCHES_BY_ROUTE = dict.fromkeys(fc.LAUNCHES_BY_ROUTE, 0)
     zero_up2()
+    zero_attention()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1514,6 +1683,9 @@ def counted_run(name, expected, run):
                              f"{BLOCKS_PER_FORWARD} fused launches")
     launches[UP2] = up2_launches(name, n_fused // BLOCKS_PER_FORWARD, up2_calls)
     log(f"[{name}] up path: {launches[UP2]} kernel launches, {len(up2_calls)} signatures")
+    routes, SPLIT_SIGS[name] = attention_routes(
+        name, SPLIT_PER_RUN.get(name, SPLIT_PER_RANK.get(name.split(":rank")[0])))
+    launches[SPLIT] = routes["split"]
     return out, secs, peak_gib, launches, fused_calls, flash_calls, up2_calls
 
 
@@ -2009,10 +2181,12 @@ def run_train(profile, dirs, gae_ckpt):
         val["train_launches"] = kernel_counts()
         fc.LAUNCHES = fa.LAUNCHES = 0
         zero_up2()
+        zero_attention()
         with recording(fused_calls, flash_calls, up2_calls):
             res = real_validate(*args, **kw)
         torch.cuda.synchronize()
         val["launches"] = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
+        val["split"], SPLIT_SIGS[TRAIN] = attention_routes(f"{TRAIN} validation")
         val["up2"] = up2_launches(f"{TRAIN} validation", TRAIN_VAL[FUSED] // BLOCKS_PER_FORWARD,
                                   up2_calls)
         return res
@@ -2028,7 +2202,7 @@ def run_train(profile, dirs, gae_ckpt):
     log(f"[{TRAIN}] {len(steps)} steps, losses {losses}")
     if len(steps) != TRAIN_STEPS or ddpm.step != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"[{TRAIN}] {len(steps)} steps ({ddpm.step} updates), losses {losses}")
-    if val.get("train_launches") != {FUSED: 0, FLASH: 0, DOT: 0, UP2: 0}:
+    if val.get("train_launches") != {FUSED: 0, FLASH: 0, DOT: 0, UP2: 0, SPLIT: 0}:
         raise AssertionError(f"[{TRAIN}] the train steps launched {val.get('train_launches')}, "
                              "expected no kernel")
     recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
@@ -2066,7 +2240,8 @@ def run_train(profile, dirs, gae_ckpt):
               "roofline_share_f32": flops / step_s / (peak_tflops * 1e12),
               "val_cube_seconds": results["ave_time"],
               "val_results": json.loads(json.dumps(results, default=float)),
-              "ema_worst_rel_err": max(ema_errs), "launches": {**val["launches"], UP2: val["up2"]}}
+              "ema_worst_rel_err": max(ema_errs),
+              "launches": {**val["launches"], UP2: val["up2"], SPLIT: val["split"]["split"]}}
     log(f"[{TRAIN}] ms per train step (median of {len(steps) - 2} after 2 warm-up): "
         f"{step_s * 1e3:.2f} ({n_latents} latents of {size}^2 from "
         f"{opt['datasets']['train']['batch_size']} HR crops)")
@@ -2649,6 +2824,8 @@ def run_infer(profile, faces):
     if any(not im["finite"] or im["shape"] != (frames, 128, 128, 3) for im in images):
         raise AssertionError(f"[{INFER}] chain outputs {images}")
     launches[UP2] = up2_launches(INFER, want[FUSED] // BLOCKS_PER_FORWARD, up2_calls)
+    routes, SPLIT_SIGS[INFER] = attention_routes(INFER)
+    launches[SPLIT] = routes["split"]
     results = os.path.join(root, "exp", "results")
     grid = (int(math.sqrt(frames)) * 128, math.ceil(frames / int(math.sqrt(frames))) * 128, 3)
     decoded_pngs(results, {f"{i}_{n}.png": (grid if n == "sr_process" else (128, 128, 3))
@@ -2887,19 +3064,24 @@ def run_probe():
 # ------------------------------------------------------------ the baseline zoo
 
 
-def no_launches(name, launches):
-    if launches != {FUSED: 0, FLASH: 0, DOT: 0, UP2: 0}:
-        raise AssertionError(f"[{name}] launched {launches}, expected no kernel")
+def no_launches(name, launches, split=0):
+    """No kernel launched but ``split`` launches of the split attention
+    kernel (daq_refiners' post_unet: the router's count of its recorded
+    calls; 0 elsewhere)."""
+    if launches != {FUSED: 0, FLASH: 0, DOT: 0, UP2: 0, SPLIT: split}:
+        raise AssertionError(f"[{name}] launched {launches}, expected no kernel but {split} "
+                             "split attention launches")
 
 
 def kernel_counts():
     from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
     from hsi_dmgasr_tpu_torch.kernels import up2_conv
 
     return {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES,
-            UP2: up2_conv.LAUNCHES_BY_ROUTE["kernel"]}
+            UP2: up2_conv.LAUNCHES_BY_ROUTE["kernel"], SPLIT: sa.LAUNCHES}
 
 
 def zero_counts():
@@ -2909,6 +3091,7 @@ def zero_counts():
 
     fc.LAUNCHES = fa.LAUNCHES = bd.LAUNCHES = 0
     zero_up2()
+    zero_attention()
 
 
 def golden_on_card(name, model_cls, prefix="sd::", kind=None, kw=None, atol=2e-5, **select):
@@ -3289,7 +3472,9 @@ def run_daq_refiners():
     statistic lands on a rounding boundary by chance) against the CPU's,
     one f64 step on the card against the CPU's (grads_against_cpu), and ms
     per f32 train step (forward, backward of mean(y^2), Adam) with its
-    peak memory. Counts: 0 before, none after. Returns the report."""
+    peak memory. Counts: 0 before; after, no kernel but the split attention
+    kernel, as often as the router sent the recorded attention calls there.
+    Returns the report."""
     import torch
 
     from hsi_dmgasr_tpu_torch.models import refiners
@@ -3362,33 +3547,35 @@ def run_daq_refiners():
         z_q, _, loss = out
         return z_q.sum() + loss
 
-    crops = torch.randn((DAQ_CROPS, DAQ_HW, DAQ_HW, DAQ_FEATS), generator=gen)
-    for bits in DAQ_BITS:
-        for kind, ctor in (("ResBlockDAQ", quantize.ResBlockDAQ),
-                           ("SSBDAQ", lambda n, **k: quantize.SSBDAQ(n, **k)),
-                           ("ResAttentionBlockDAQ", quantize.ResAttentionBlockDAQ)):
-            held(f"{kind}:a{bits}w{bits}",
-                 lambda ctor=ctor, bits=bits: ctor(DAQ_FEATS, a_bit=bits, w_bit=bits),
-                 (crops,), (crops[:DAQ_HELD],), lambda y: y)
-    cube = torch.rand((1, 512, 512, 102), generator=gen)
-    held("AttentionNet", lambda: refiners.AttentionNet(n_colors=102, n_feats=64), (cube,), None,
-         lambda y: y)
-    pu_x = torch.rand((4, 128, 128, 102), generator=gen)
-    pu_t = torch.randint(0, 2000, (4,), generator=gen, dtype=torch.int32)
-    held("post_unet", lambda: refiners.post_unet(102, 102), (pu_x, pu_t), None, lambda y: y,
-         train=True)
-    z = torch.randn((16, 8, 8, 512), generator=gen)
-    # the codebook's indices card vs CPU in f64: an f32 distance may tie
-    model = seeded(lambda: refiners.Codebook(4096, 512))
-    idx = {dev: model.to(dev, torch.float64)(z.to(dev, torch.float64))[1].cpu()
-           for dev in ("cpu", "cuda")}
-    if not torch.equal(idx["cpu"], idx["cuda"]):
-        raise AssertionError(f"[{DAQ}] Codebook indices differ card vs CPU")
-    held("Codebook", lambda: refiners.Codebook(4096, 512), (z,), (z,), lambda y: y[0])
-    report["Codebook"]["indices_equal_f64"] = True
+    with attention_recording():
+        crops = torch.randn((DAQ_CROPS, DAQ_HW, DAQ_HW, DAQ_FEATS), generator=gen)
+        for bits in DAQ_BITS:
+            for kind, ctor in (("ResBlockDAQ", quantize.ResBlockDAQ),
+                               ("SSBDAQ", lambda n, **k: quantize.SSBDAQ(n, **k)),
+                               ("ResAttentionBlockDAQ", quantize.ResAttentionBlockDAQ)):
+                held(f"{kind}:a{bits}w{bits}",
+                     lambda ctor=ctor, bits=bits: ctor(DAQ_FEATS, a_bit=bits, w_bit=bits),
+                     (crops,), (crops[:DAQ_HELD],), lambda y: y)
+        cube = torch.rand((1, 512, 512, 102), generator=gen)
+        held("AttentionNet", lambda: refiners.AttentionNet(n_colors=102, n_feats=64), (cube,), None,
+             lambda y: y)
+        pu_x = torch.rand((4, 128, 128, 102), generator=gen)
+        pu_t = torch.randint(0, 2000, (4,), generator=gen, dtype=torch.int32)
+        held("post_unet", lambda: refiners.post_unet(102, 102), (pu_x, pu_t), None, lambda y: y,
+             train=True)
+        z = torch.randn((16, 8, 8, 512), generator=gen)
+        # the codebook's indices card vs CPU in f64: an f32 distance may tie
+        model = seeded(lambda: refiners.Codebook(4096, 512))
+        idx = {dev: model.to(dev, torch.float64)(z.to(dev, torch.float64))[1].cpu()
+               for dev in ("cpu", "cuda")}
+        if not torch.equal(idx["cpu"], idx["cuda"]):
+            raise AssertionError(f"[{DAQ}] Codebook indices differ card vs CPU")
+        held("Codebook", lambda: refiners.Codebook(4096, 512), (z,), (z,), lambda y: y[0])
+        report["Codebook"]["indices_equal_f64"] = True
     report["seconds"] = time.perf_counter() - t_path
     report["launches"] = launches = kernel_counts()
-    no_launches(DAQ, launches)
+    routes, SPLIT_SIGS[DAQ] = attention_routes(DAQ)
+    no_launches(DAQ, launches, routes["split"])
     log(f"[{DAQ}] {report['seconds']:.1f} s, kernel launches {launches}")
     return report
 
@@ -3435,6 +3622,7 @@ def r3_dp_rank(rank, device, weights, seed):
                              "expected 5 (9 latents wrap-padded to 10 over 2 ranks)")
     return {"mesh": mesh.n_data, "launches": launches, "fused_calls": fused_calls,
             "flash_calls": flash_calls, "up2_calls": up2_calls,
+            "split_calls": SPLIT_SIGS[f"{R3_DP}:rank{rank}"],
             "gathered_bytes": dict(mesh.gathered),
             "peak_memory_gib": peak_gib, "counted_seconds": secs, "seconds": timed,
             "latent": decode.call_args[0][0].cpu()}
@@ -3489,7 +3677,8 @@ def run_r3_dp():
                             (up2_calls, r["up2_calls"])):
             for sig, n in calls.items():
                 mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2)}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2, SPLIT)}
+    SPLIT_SIGS[R3_DP] = merged_split(ranks)
     report = {"config": config, "note": TWO_RANKS, "launches": launches,
               "launches_per_rank": [r["launches"] for r in ranks],
               "cube_seconds": [r["seconds"] for r in ranks],
@@ -3618,6 +3807,7 @@ def train_dp_rank(rank, device, opt, weights, one_rank):
             "train_launches": train_launches, "worst_leaf_rel_err": worst, "digest": digest,
             "reduced_bytes": reduced, "val_launches": launches, "val_seconds": secs,
             "fused_calls": fused_calls, "flash_calls": flash_calls, "up2_calls": up2_calls,
+            "split_calls": SPLIT_SIGS[f"{TRAIN_DP}:rank{rank}"],
             "val_latent": decode.call_args[0][0].cpu()}
 
 
@@ -3688,7 +3878,8 @@ def run_train_r3_dp(dirs, gae_ckpt):
                             (up2_calls, r["up2_calls"])):
             for sig, n in calls.items():
                 mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["val_launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2)}
+    launches = {k: sum(r["val_launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2, SPLIT)}
+    SPLIT_SIGS[TRAIN_DP] = merged_split(ranks)
     step_ms = [statistics.median(r["times"][1:]) * 1e3 for r in ranks]
     reduced = [r["reduced_bytes"].get("gradients", 0) / TRAIN_DP_STEPS for r in ranks]
     report = {"note": TWO_RANKS, "steps": TRAIN_DP_STEPS, "latents_per_step": TRAIN_DP_CROPS * 9,
@@ -3804,6 +3995,10 @@ def main():
             for sig, n in calls.items():
                 sigs.setdefault(sig, dict.fromkeys(UNET_PATHS, 0))[path] = n
     report["paths"][PROBE] = probe = run_probe()
+    split_sigs = {}
+    for path in SPLIT_PATHS:
+        for sig, n in SPLIT_SIGS.get(path, {}).items():
+            split_sigs.setdefault(sig, dict.fromkeys(SPLIT_PATHS, 0))[path] = n
 
     # ---- 4. each kernel vs its plain version, and timings, per signature
     fused_rows = []
@@ -3837,6 +4032,18 @@ def main():
             f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
             f"einsum {row['einsum_ms']:.3f} bound {row['bound_ms']:.3f} ({row['bound_by']})")
         torch.cuda.empty_cache()
+    split_rows = []
+    for i, (sig, counts) in enumerate(sorted(split_sigs.items(), key=lambda kv: kv[0][0])):
+        row = check_split(sig, 400 + i)
+        row["counts"] = counts
+        split_rows.append(row)
+        err = row["errors"]["out"]
+        log(f"split {row['signature']:<30} {counts} abs {err['max_abs']:.2e} ({err['of_bound']:.2e} "
+            f"of (1 + 2A) W) | ms {row['ms']:.3f} ({row['tflops']:.1f} TFLOP/s counted once; split "
+            f"{row['split_ms']:.3f}, logits {row['logits_ms']:.3f}, p.v {row['pv_ms']:.3f}) plain "
+            f"{row['plain_ms']:.3f} einsum {row['einsum_ms']:.3f} bound {row['bound_ms']:.3f} "
+            f"({row['bound_by']})")
+        torch.cuda.empty_cache()
     dot_rows = []
     for i, (case, dt) in enumerate((c, dt) for c in mb.CASES for dt in ("int8", "bf16")):
         row = check_dot(case, dt, seed=300 + i)
@@ -3853,6 +4060,7 @@ def main():
     up2 = up2_rows(up2_sigs)
     report["fused_signatures"], report["flash_signatures"] = fused_rows, flash_rows
     report["dot_signatures"], report["up2_signatures"] = dot_rows, up2
+    report["split_signatures"] = split_rows
     for path in UNET_PATHS:
         levels = {}
         for r in fused_rows:
@@ -3890,6 +4098,9 @@ def main():
         kernel_entry(UP2, "hsi_dmgasr_tpu_torch/csrc/up2_conv.cu",
                      "none (hsi_dmgasr_tpu/ops/fused_up.py:up2_conv3x3 is XLA's)", up2,
                      launches(UP2)),
+        kernel_entry(SPLIT, "hsi_dmgasr_tpu_torch/csrc/split_attention.cu",
+                     "none (hsi_dmgasr_tpu/kernels/attention.py:_xla_attention is XLA's)",
+                     split_rows, {p: report["paths"][p]["launches"][SPLIT] for p in SPLIT_PATHS}),
         kernel_entry(DOT, "hsi_dmgasr_tpu_torch/csrc/blocked_dot.cu",
                      "tools/microbench_int8.py:88", dot_rows,
                      {PROBE: probe["launches"][DOT],

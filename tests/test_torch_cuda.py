@@ -26,7 +26,15 @@ version and to the JAX package's output kept in a golden, elementwise
 within 2e-5 of sum |x| |w| over each output's taps:
 its bf16 hi + lo products leave out terms below 3 x 2^-18 (1.1e-5) of it,
 and its f32 sums run in another order (about 1e-6; the largest measured on
-an H100 was 2.4e-6).
+an H100 was 2.4e-6). The split attention kernel and its plain version
+carry q * scale, k, v and p as bf16 hi + lo pairs alike; each is within
+2^-16 (1 + 2 A_i) W_id of the exact function (A_i the row's largest
+sum |q||k| * scale, W_id = sum_j p_ij |v_jd|; kernels/split_attention.py:split_bound
+derives it), so they are held to that bound of each other: they differ by
+f32 summation order and the kernel's ex2.approx (3.7e-6 at most at the
+r3 shape on an H100, 1.2e-7 of the bound). Against the JAX package's
+output (tests/golden/split_attention_golden.npz), each side within that
+bound of the exact function, the kernel is held to twice it.
 """
 
 import numpy as np
@@ -34,7 +42,7 @@ import pytest
 import torch
 
 from hsi_dmgasr_tpu_torch.kernels import (attention, blocked_dot, flash_attention, fused_conv,
-                                          up2_conv)
+                                          split_attention, up2_conv)
 from hsi_dmgasr_tpu_torch.ops import fused_up
 from hsi_dmgasr_tpu_torch.parallel import spatial
 from hsi_dmgasr_tpu_torch.tools import microbench_int8
@@ -313,6 +321,81 @@ def test_gate_launches_the_kernel_on_the_card(dev):
     q, k, v = _qkv(1, 1024, 1, 512, dev, seed=3)
     attention.spatial_attention(q, k, v, 1.0 / np.sqrt(512))
     assert flash_attention.LAUNCHES == n0 + 1
+
+
+# the split kernel: (B, S, H, D)
+SPLIT_CASES = [
+    (9, 4096, 1, 512),   # configs/pavia_x4_r3.json: the 64^2 level of a 512^2 latent
+    (9, 1024, 1, 512),   # the mid block at 32^2
+    (2, 1000, 1, 512),   # S ragged against every tile
+    (1, 300, 3, 64),     # H > 1 over strided views
+    (1, 256, 1, 512),    # configs/sr_sr3_16_128.json at 16^2, B=1
+    (1, 16, 1, 512),     # the shortest sequence the router sends
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_CASES)
+def test_split_attention_matches_plain(dev, shape):
+    q, k, v = _qkv(*shape, dev, seed=shape[1])
+    scale = 1.0 / np.sqrt(shape[2] * shape[3])
+    want = split_attention.split_attention_plain(q, k, v, scale)
+    n0 = split_attention.LAUNCHES
+    got = split_attention.split_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert split_attention.LAUNCHES == n0 + 1
+    assert got.shape == want.shape and got.dtype == torch.float32 and got.is_contiguous()
+    bound = split_attention.split_bound(q, k, v, scale)
+    assert bool(((got.double() - want.double()).abs() <= 2.0 ** -16 * bound).all())
+
+
+@pytest.mark.parametrize("name", ["d512", "heads"])
+def test_split_kernel_matches_the_jax_package(dev, name):
+    """The kernel against the JAX package's _xla_attention of the same q, k
+    and v: its output is kept in tests/golden/split_attention_golden.npz,
+    made on the CPU, where tests/test_torch_split_attention.py holds it to
+    the JAX package. Each is within 2^-16 (1 + 2 A) W of float64."""
+    import os
+
+    g = np.load(os.path.join(os.path.dirname(__file__), "golden", "split_attention_golden.npz"))
+    qkv, want = (torch.from_numpy(g[f"{name}.{k}"]).to(dev) for k in ("qkv", "out"))
+    b, s, h, d = want.shape
+    q, k, v = qkv.split(d, dim=-1)
+    scale = 1.0 / np.sqrt(h * d)
+    n0 = split_attention.LAUNCHES
+    got = split_attention.split_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert split_attention.LAUNCHES == n0 + 1
+    bound = split_attention.split_bound(q, k, v, scale)
+    assert bool(((got.double() - want.double()).abs() <= 2.0 ** -15 * bound).all())
+
+
+def test_gate_copies_layouts_the_kernel_does_not_read(dev):
+    """q with D not unit-stride still takes the kernel, on a copy."""
+    q, k, v = _qkv(2, 300, 1, 128, dev, seed=6)
+    qt = q.permute(3, 2, 1, 0).contiguous().permute(3, 2, 1, 0)
+    assert qt.stride(-1) != 1 and torch.equal(qt, q)
+    n0 = split_attention.LAUNCHES
+    got = attention.spatial_attention(qt, k, v, 0.08)
+    torch.cuda.synchronize()
+    assert split_attention.LAUNCHES == n0 + 1
+    want = split_attention.split_attention_plain(q, k, v, 0.08).reshape(got.shape)
+    bound = split_attention.split_bound(q, k, v, 0.08).reshape(got.shape)
+    assert bool(((got.double() - want.double()).abs() <= 2.0 ** -16 * bound).all())
+
+
+def test_gate_takes_the_split_kernel_on_the_card(dev):
+    """f32 below the flash gate: the split kernel, unless autograd records
+    a graph through the call; bf16 keeps the einsum route."""
+    q, k, v = _qkv(1, 1024, 1, 512, dev, seed=5)
+    n0, routes = split_attention.LAUNCHES, dict(attention.LAUNCHES_BY_ROUTE)
+    out = attention.spatial_attention(q, k, v, 1.0 / np.sqrt(512))
+    torch.cuda.synchronize()
+    assert split_attention.LAUNCHES == n0 + 1 and out.shape == (1, 1024, 512)
+    attention.spatial_attention(q.detach().requires_grad_(True), k, v, 0.05)
+    attention.spatial_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), 0.05)
+    assert split_attention.LAUNCHES == n0 + 1
+    assert {r: n - routes[r] for r, n in attention.LAUNCHES_BY_ROUTE.items()} == \
+        {"flash": 0, "split": 1, "einsum": 2}
 
 
 # the int8 probe's cases (M, K, N, bm, bn); a ragged K tail of one MMA step

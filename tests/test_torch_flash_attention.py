@@ -80,16 +80,19 @@ def test_shapes_the_kernel_does_not_take_raise(shape, kw, match):
 
 @pytest.mark.parametrize("s,d,route", [
     (8192, 128, "flash"),
-    (8191, 128, "einsum"),
-    (8192, 192, "einsum"),
+    (8191, 128, "split"),    # below the flash gate: the f32 split kernel
+    (8192, 192, "split"),    # D % 128 != 0: not flash's; D % 64 == 0: the split kernel's
+    (8192, 96, "einsum"),    # neither kernel takes D = 96
     (16384, 256, "flash"),   # configs/pavia_x4.json: the 128^2 level of a 512^2 latent
-    (1024, 512, "einsum"),   # its mid block at 32^2
+    (1024, 512, "split"),    # its mid block at 32^2
 ])
 def test_gate_sends_what_the_jax_gate_sends(s, d, route):
     """hsi_dmgasr_tpu/kernels/attention.py:40-44 with the card in the
     TPU's place: S >= 8192, a CUDA tensor and D % 128 == 0, or forced.
     The card is stood in for by reporting the CPU tensor as a CUDA one;
-    off the card every shape takes the einsum path, as off the TPU."""
+    off the card every shape takes the einsum path, as off the TPU. Below
+    the JAX package's gate the card's f32 calls that record no graph take
+    the split kernel where it takes D."""
     q = torch.zeros((1, s, 1, d))
     calls = []
 
@@ -100,6 +103,7 @@ def test_gate_sends_what_the_jax_gate_sends(s, d, route):
         return fn
 
     with mock.patch.object(attention, "flash_attention", record("flash", (1, s, 1, d))), \
+            mock.patch.object(attention, "split_attention", record("split", (1, s, 1, d))), \
             mock.patch.object(attention, "_einsum_attention", record("einsum", (1, s, d))):
         out = attention.spatial_attention(q, q, q, 0.1)
         assert calls == ["einsum"] and out.shape == (1, s, d)
