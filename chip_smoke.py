@@ -1,290 +1,68 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of DMGASR on one NVIDIA GPU.
+"""The card's gate for the PyTorch + CUDA port of DMGASR, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It imports only torch and hsi_dmgasr_tpu_torch,
-and fails (exit code != 0, no result line) without a GPU or outside a
-checkout. It drives nineteen main paths. Eight are x4 DMGASR on
-Pavia-geometry cubes at full width (UNet inner 64, mults 1,2,4,8,8,
-res_blocks 2, GroupNorm 32, cosine T=20; GAE n_subs 16, n_ovls 4, n_feats
-64, G=9; seeded random weights), on a 512x512x102 cube unless said:
+and fails (exit code != 0, no result line) without a GPU, outside a
+checkout, or at the first gate a path misses. It times no path: the
+benchmark (``python3 -m portbench.run`` under BENCHMARK.json) measures
+the cells. The one time it takes is each kernel's device time alone at
+each launch signature the paths recorded (``kernel_ms``).
 
-  * configs/pavia_x4_r3.json: image_size 128, the chain entered at
-    t_start=4, latent affine; attention at 64^2 and 32^2 stays below the
-    flash gate, on the split kernel (24 launches). f32 activations. 220
-    fused-Block launches per cube.
-  * pavia_x4_r3_ddim: the same config with the DDIM sampler (4 steps,
-    eta 0, from noise: t_start removed, as the JAX package refuses it
-    with DDIM). 220 fused-Block launches per cube; one chain from a
-    seeded x_init is also run on the kernels' plain versions and held to
-    the kernels' chain.
-  * configs/pavia_x4.json: image_size 64, the full T=20 chain, no affine;
-    attention at the 128^2 level (16384 tokens, D=256) goes to the flash
-    kernel, 5 layers per UNet forward. f32 activations. 100 flash and 1100
-    fused-Block launches per cube.
-  * bench_x4_bf16: the port's flagship bench (hsi_dmgasr_tpu_torch/bench.py)
-    at its defaults: image_size 512, bf16 weights and activations, fused
-    Blocks; attention only in the mid block (32^2, below the gate). Its
-    two rows, the t_start=4 cube and the full T=20 chain, launch 220 and
-    1100 fused Blocks and no flash; it prints the bench's JSON line (both
-    cube times, the UNet step's roofline share).
-  * pavia_x4_r3_chunked: configs/pavia_x4_r3.json with
-    model.diffusion.latent_chunk 12 on 4 cubes (the JAX README's
-    throughput mode): 36 latents in 3 chains of 12, 660 fused-Block
-    launches per call at B=12; then the same batch unchunked from the same
-    replayed draws (its row pavia_x4_r3_chunked:unchunked, 220 launches at
-    B=36), the two held to TOL_UNET, each with its seconds per cube and
-    peak memory.
-  * pavia_x4_tiled: one seeded 1096x715x102 SR cube (the Pavia Centre
-    scene's size) through super_resolve_tiled(tile 512, overlap 32) under
-    the r3 config: 6 tiles of 512^2 (origins y 0, 480, 584; x 0, 203), 1320
-    fused-Block launches per scene; the last tile held to super_resolve of
-    its patch from the same generator (TOL_UNET).
-  * pavia_x4_spatial: configs/pavia_x4.json through super_resolve_spatial
-    on a ('data', 'space') = (1, 2) mesh: two ranks spawned on the one
-    card (gloo, a file:// store), each holding 256 of the 512 latent rows,
-    replaying the pavia_x4 cube's draws. Each rank launches 1100 fused
-    Blocks (with halo rows and the whole image's moments) and 100 flash
-    attentions (on the gathered 128^2 level) per cube. Two ranks share one
-    card: its times are not multi-card times.
-  * pavia_x4_r3_dp: configs/pavia_x4_r3.json through super_resolve with
-    a 'data' mesh over two ranks on the one card (gloo): each rank draws
-    the whole batch's x_init and noise as one process does, wrap-pads the
-    9 latents to 10 and runs its 5, 220 fused-Block launches per rank at
-    B=5; the gathered latent against the single process's from the same
-    generator (TOL_UNET). Not a multi-card time either.
+The paths, at full width with seeded weights and data, TF32 off. Those
+marked * run the fused UNet, their launches held to ``FORWARDS``:
 
-The ninth to twelfth are the two training stages at the same full width,
-chained as a user chains them, stage 2 with remat, and stage 2
-data-parallel:
+  * pavia_x4_r3, pavia_x4_r3_ddim, pavia_x4: configs/pavia_x4_r3.json
+    (t_start 4; with DDIM, 4 steps, its chain with the kernels held to
+    the same chain on their plain versions) and configs/pavia_x4.json
+    (T = 20, flash at 128^2) on a 512^2 x 102 cube: the cube in [0, 1],
+    one UNet forward with the kernels against their plain versions;
+  * bench_x4_bf16 and its full chain: the port's bench at its defaults
+    (bf16), the GAE's bf16 overlap average against the CPU's, one bf16
+    UNet forward against the plain kernels;
+  * pavia_x4_spatial: pavia_x4 through super_resolve_spatial on a
+    ('data', 'space') = (1, 2) mesh, two ranks sharing the card over
+    gloo: the ranks' latents bit for bit, the sharded chain within
+    TOL_UNET of one device's;
+  * pavia_x4_r3_dp: the r3 cube with a 'data' mesh over two such ranks
+    (9 latents padded to 10, B=5 a rank), within TOL_UNET of one process;
+  * pavia_x4_r3_chunked: latent_chunk 12 on 4 cubes against the same
+    batch unchunked from the same draws; pavia_x4_tiled: a 1096 x 715
+    scene through super_resolve_tiled(512, 32), its last tile against
+    super_resolve of its patch;
+    train_gae: stage 1 through cli.ae (12 steps, the save loaded back bit
+    for bit, a batch-1 step card against CPU with HLoss in f32 and with
+    the perceptual term in f64), then cli.gae_test;
+  * train_r3: stage 2 through stage2_driver.train on that GAE (12 steps,
+    the EMA per step, the checkpoint loaded back bit for bit, one
+    validation on the fused UNet, every weight's _version moved by a step,
+    the fused EMA UNet against its plain and unfused forwards, a batch-1
+    step card against CPU);
+  * train_r3_dp: train_r3's step for 3 steps over two ranks against one
+    rank (states bit for bit alike, gradients and Adam within TRAIN_DP),
+    one validation cube a rank; train_r3_remat: remat's step against the
+    plain step;
+    sample_ddpm_16: the BatchNorm DDPM's step card against CPU, then a
+    DDIM sample of 2;
+  * infer_sr3_16_128: cli.infer on configs/sr_sr3_16_128.json (200 steps,
+    2 images), every PNG decoded, one forward and the chain's first 4
+    steps against the plain kernels, cli.eval;
+    sample_cli_ddpm_16: cli.sample train then val from its checkpoint;
+    int8_probe: the int8 probe's chains, the kernel's int8 sums equal to
+    the library's after 4000 links;
+    baselines_x4, gan3d_x4, daq_refiners: the baseline zoo, the 3-D GAN,
+    the DAQ blocks and refiners, each golden on the card and a step (a
+    forward) card against CPU in f64; color_correction_torch against numpy.
 
-  * train_gae: stage-1 GAE training through the port's CLI (cli.ae, at
-    its defaults: n_subs 16, n_ovls 4, n_colors 102, n_feats 64, scale 4,
-    batch 8), HLoss, Adam 1e-4, device-resident scenes: 8 HR crops of
-    128^2 x 102 a step, 72 group images through the shared encoder and
-    decoder (cuDNN, TF32 off). Cut: 12 steps over 2 epochs, ending on the
-    CLI's save; then cli.gae_test on the saved directory over the 3 val
-    scenes at 128^2. No kernel of the port runs.
-  * train_r3: configs/pavia_x4_r3.json through the port's driver
-    (stage2_driver.train, as the CLI runs it): dropout 0.2, Adam with the
-    cosine lr, EMA 0.999 sampled at eval, device-resident scenes with the
-    degradation on the card; 4 HR crops of 128^2 x 102 a step, so 36
-    latents through the unfused autograd UNet (TF32 off). Cut: 12 steps,
-    then one periodic save, one validation (3 val scenes of 128^2 x 3
-    chains at t_start=4, fused Blocks) and one best save; its GAE is the
-    directory train_gae saved. The steps launch no kernel; the validation
-    launches 55 x 4 fused Blocks per (scene, chain), 1980, and writes
-    each scene's PNGs (three bands of sr, hr and input, the Jet error map).
-  * train_r3_remat: train_r3's configuration with model.unet.remat off and
-    on, each from seed 0 on the same GAE: one step's loss and every
-    gradient from the same crops and dropout generator, remat against
-    plain within atol 1e-4, rtol 1e-3 (tests/test_remat.py's), then 5
-    steps of each, their ms per step and peak memory. No kernel launch.
-  * train_r3_dp: train_r3's step (36 latents from 4 HR crops) for 3 steps
-    over two ranks on the one card (18 latents each, the gradients
-    all-reduced through host memory and gloo) from the weights and draws
-    of a one-rank run of the same steps: the ranks' weights, EMA and Adam
-    state bit for bit alike, rank 0's held to the one-rank run's (see
-    TRAIN_DP), then one validation cube of 128^2 per rank (220 fused
-    launches at B=5); ms per step, peak memory and bytes all-reduced per
-    rank. The steps launch no kernel.
-
-Both train on the same 8 training scenes of 256^2 and validate on the
-same 3 val scenes of 128^2, written from a seed under build/scenes.
-
-The thirteenth is unconditional generation, the discrete-t BatchNorm DDPM
-variant:
-
-  * sample_ddpm_16: configs/sample_ddpm_16.json at its full width (inner
-    64, mults 1,2,4,8,8, attn_res 16, image_size 128, linear T=2000),
-    seeded orthogonal weights, dropout 0: one train step of 4 HR images
-    of 128^2 x 3 on the card against the same step on the CPU (the loss,
-    every gradient, the BatchNorm running statistics after it), then
-    DDPMModel.sample of 2 images: the 2000-step ancestral chain when 2000
-    UNet forwards take at most 30 s, else DDIM over 100 steps. Its
-    Blocks are BatchNorm, so no kernel of the port runs.
-
-The fourteenth and fifteenth are the SR3 face configs through the port's CLIs,
-on 4 seeded 128^2 face-like PNGs (and their 16 -> 128 SR images) that
-the port's own PNG writer puts under build/faces:
-
-  * infer_sr3_16_128: cli.infer (--process_mode grid) on
-    configs/sr_sr3_16_128.json at full width (inner 64, mults 1,2,4,8,8,
-    res_blocks 2, GroupNorm 32, attn_res 16, 128^2 x 3) with
-    model.unet.fuse on, over 2 images. Cut: the val schedule's 2000 steps
-    to 200 (cosine), fixed. Every Block of every reverse step is the
-    fused kernel: 55 x 200 = 11000 launches per image at B=1, 128^2 ...
-    8^2; attention at 16^2 and in the mid block takes the split kernel.
-    Then cli.eval over the written pairs.
-  * sample_cli_ddpm_16: cli.sample on configs/sample_ddpm_16.json at full
-    width, -p train for 4 steps of the 4 images (a checkpoint and a
-    sample at step 4), then -p val resuming that checkpoint. Cut: both
-    schedules' 2000 steps to 100 (linear). BatchNorm Blocks: no kernel of
-    the port runs.
-
-The sixteenth is the int8 probe (hsi_dmgasr_tpu_torch.tools.microbench_int8):
-
-  * int8_probe: chains of 4000 dependent dots x @ w with a requantize
-    step, at M = 4096 and (K, N) = (512, 512), (576, 256), (192, 256),
-    int8 -> int32 and bf16 -> f32, through the library's dot and through
-    the blocked-dot kernel; each chain captured in a CUDA graph and
-    replayed once per input (4 inputs). 6 x (1 + 4 x 4000) = 96006
-    blocked-dot launches.
-
-The seventeenth to nineteenth are the baseline zoo and the 3-D GAN
-through the port's CLIs, and DAQ quantization with the refiners, at full
-width with seeded weights and scenes, TF32 off. No kernel of the port
-runs on them (cuDNN convolutions): each reads 0 launches of all three
-kernels.
-
-  * baselines_x4: cli.baselines train at its defaults on Pavia's 102
-    bands (the README's baseline command) for sspsr, gelin, mcnet and
-    gdrrn at scale 4 and edsr at scale 2 (the reference pins it): batches
-    of 16 HSTrainingData crops of 128^2 x 102 (64^2 for edsr) from the 8
-    training scenes of make_train_data, with the host's MATLAB-bicubic
-    degradation; SSPSR at n_feats 256 over 17 groups of 8 bands. Cut: 3
-    steps each (--max_steps), then cli.baselines test on the saved
-    checkpoint over 1 val scene (gt_size 64). CEGATSR, which no CLI
-    trains, as one forward at its defaults on 16 x 32^2 x 102. Each
-    model's reference golden state_dict loaded on the card reproduces the
-    golden output (atol 2e-5, GDRRN 5e-5, rtol 1e-4); one step from the
-    trained full-width weights on one item of LR 8^2 x 102 on the card
-    against the CPU's, in f64 (CEGATSR: the forward); the test metrics
-    finite where defined (a band's cross-correlation is 0/0 where the
-    clipped prediction of a barely trained model is constant).
-  * gan3d_x4: cli.gan_train at its defaults (n_bands 31, fis 144, scale
-    4, batch 4) on a seeded stacked-scene .npy of 2 x 31 x 512^2 (18
-    tiles). Cut: 3 steps. Both nets' goldens on the card; the checkpoint
-    back bit for bit; one D step and one G step from the trained nets on
-    one 36^2 tile, on the card against the CPU's in f64 (both losses,
-    every gradient, D's running statistics after the step).
-  * daq_refiners: ResBlockDAQ, SSBDAQ and ResAttentionBlockDAQ at n_feats
-    64, a_bit = w_bit 4 and 8, on 16 crops of 128^2; AttentionNet(102, 64)
-    on one 512^2 x 102 cube; post_unet(102, 102) at its defaults on 4 x
-    128^2 x 102; Codebook(4096, 512) on 1024 vectors. Each forward on the
-    card against the CPU's (the DAQ blocks and the codebook in f64), one
-    f64 step card against CPU, ms per f32 step and peak memory. Every
-    attention call is recorded and held to the router's counts: the split
-    kernel runs in post_unet's f32 forward, and nowhere else in the zoo.
-
-In order:
-
- 1. prints the card (nvidia-smi name and power limit) and versions;
- 2. builds every CUDA kernel of the port from csrc/ (one nvcc each, all
-    at once) and prints the build seconds and register use;
- 3. for each Pavia path and each bench row: sets the launch counts to 0,
-    drives one cube while recording every launch signature of both
-    kernels and every call of the up path (ops/fused_up.py:up2_conv3x3),
-    checks the cube (shape, finite, in [0, 1]) and the exact launch counts
-    (the up path: 4 calls a UNet forward, each f32 call a launch of its
-    kernel and each bf16 one cuDNN's transposed conv, as its router counts
-    them; every UNet path below is held to the same, and the spatial
-    path's ranks to no call), times it (median of 3) and reads the peak
-    memory; holds
-    one full-width UNet forward with the kernels against the same forward
-    with their plain versions (in bf16 for the bench; the f32 paths also
-    report both against the unfused f32 forward). Then pavia_x4_r3_chunked
-    and its unchunked reference, each with its counts to 0, recorded and
-    counted, checked, timed and its peak memory read, the two held to each
-    other; then pavia_x4_tiled the same way, one tile held to
-    super_resolve. Then pavia_x4_spatial:
-    the single-device pavia_x4 chain twice from its draws (the reference,
-    and the spread of two such chains), then the two ranks, each with its
-    counts to 0, one cube recorded and counted (1100 fused, 100 flash per
-    rank), checked, and timed (median of 3); the ranks' cubes equal and the
-    sharded latent chain within TOL_UNET of the single-device one (its
-    distance against the JAX package's 1e-4 printed); peak memory per rank
-    and bytes gathered per cube (halos, moments, attention, the output).
-    Then pavia_x4_r3_dp: the single-process r3 cube, then the two ranks,
-    each with its counts to 0, one cube recorded and counted (220 fused
-    at B=5 per rank), the ranks' gathered latents equal and within
-    TOL_UNET of the single process's. Then train_gae: counts
-    to 0, cli.ae's steps, no launch counted; every step's loss finite, the
-    saved directory loaded back into a fresh GAE bit for bit, one batch-1
-    step on the card against the same step on the CPU (HLoss in f32, and
-    HLoss plus the perceptual term on a seeded VGG19 with given bands in
-    f64), every
-    gae_test cube's metrics finite; ms per step (median after 2 warm-up
-    steps), crops per second, peak memory, the step's share of its f32
-    roofline, the perceptual step's ms, seconds per gae_test cube. Then
-    train_r3 on that checkpoint:
-    counts to 0, stage2_driver's steps and validation, with the counts read at
-    both ends of the validation; every step's loss finite, the EMA after
-    every step against 0.999 EMA_prev + 0.001 params on a few leaves, the
-    periodic checkpoint loaded back into a fresh DDPMModel bit for bit,
-    every live and EMA weight's _version moved by one more step (the fused
-    Block's pack key) and the fused EMA UNet then against its plain-kernel
-    and unfused forwards, one
-    batch-1 step on the card against the same step on the CPU; ms per step
-    (median after 2 warm-up steps), latents per second, peak memory, the
-    step's share of its f32 roofline, seconds per validation cube. Then
-    train_r3_dp: the one-rank steps, the two ranks' steps, their states
-    held to each other and to the one-rank run, no launch in the steps, one
-    validation cube per rank recorded and counted. Then
-    train_r3_remat: counts to 0, the remat step against the plain step,
-    ms per step and peak memory of each, no launch counted. Then the probe:
-    counts to 0, the probe run once, the exact launch counts, and the int8
-    chains of the kernel and the library held equal bit for bit after 4000
-    links. Then sample_ddpm_16: counts to 0, its train step against the
-    CPU's, one UNet forward timed, the sample drawn, no launch counted.
-    Then infer_sr3_16_128: counts to 0, the CLI with its launch signatures
-    recorded, exactly 11000 fused launches per image, every PNG decoded
-    (the port's reader) to its shape, the chains finite, one B=1 UNet
-    forward and the chain's first 4 steps (replayed from one x_init and
-    noise) with the kernels against their plain versions (TOL_UNET),
-    cli.eval's PSNR and SSIM finite; seconds per image, forwards/s, one
-    forward's ms, peak memory. Then sample_cli_ddpm_16: counts to 0, both
-    phases, no launch counted, the files decoded, the val phase on the
-    trained step; seconds per sample, peak memory. Then, after the
-    memory modes, baselines_x4 and gan3d_x4: counts to 0, the CLIs, no
-    launch counted; per model ms per train step (synchronised, the host's
-    data loading outside it) and the CLI's seconds, peak memory, seconds
-    per test scene, the golden and card-vs-CPU checks above; then
-    daq_refiners the same way. Then color_correction_torch on the card
-    against the numpy version;
- 4. for each recorded signature (f32 or bf16), on the card at that shape
-    (B=9, B=5 for the data-parallel rows, and B=12 and B=36 for the
-    chunked row, with fewer timing repeats): kernel vs its plain PyTorch version (asserted within tolerance), the
-    kernel's, the plain version's and one library call's times, and the
-    bound; for the fused Block also its launch alone, replayed in a CUDA
-    graph, and each signature's and level's share of its bound and ratio
-    to cuDNN; the flash kernel also at D=128 and at D=512 (S >= 8192) and
-    at pavia_x4_r3's 64^2 attention, and at each of its shapes with bf16
-    q, k and v as well, each flash shape with the prepass's and the
-    attention kernel's device times (torch.profiler, which must see one
-    launch of each per call) and the einsum route's time beside it; the
-    split attention kernel at each f32 signature the paths recorded,
-    within TOL_SPLIT of its plain version, with each phase's time, the
-    plain version's and the einsum route's (daq_refiners' post_unet
-    signatures too); the blocked dot at each probe case and dtype, with its share of the bound,
-    TOP/s and ratio to the library call, and a 3-link captured chain
-    against the same chain run eagerly; the up path's kernel at each f32
-    signature recorded (the four up levels at B=9, 5, 1, 12 and 36 and at
-    the validations' 128^2) against its plain version and cuDNN's f32
-    transposed conv (TF32 off), each within TOL_UP2 of sum |x| |w|, with
-    its time, its launch alone (a CUDA graph), the plain version's and the
-    transposed conv's times and the bound;
- 5. the unfused UNet against the reference torch golden
-    (tests/golden/unet_diffusion_golden.npz);
- 6. prints the card line, the kernels JSON line and, last, the result
-    line {"ok": true, "device": {...}}.
-
-Details go to chiprun_out/chip_smoke.json. ``--profile`` adds one traced
-cube per path (the bench's t_start=4 row for bench_x4_bf16, one train
-step each for train_gae and train_r3, ten UNet forwards of the sampler
-for sample_ddpm_16, one image's chain for infer_sr3_16_128; none for
-the chunked, tiled and remat rows): device
-time by kernel name
-(torch.profiler), the device's idle share and the seconds of each stage
-(GAE encode, reverse chain, GAE decode; for a stage-1 step: forward +
-loss, backward, Adam; for a stage-2 step: degradation, GAE encode, UNet
-forward + backward, Adam + EMA), into chip_smoke_profile.json beside it.
-train_gae writes its checkpoint under build/train_gae, train_r3 its
-experiment directory under build/train_r3, the CLIs theirs under
-build/infer_sr3_16_128 and build/sample_cli_ddpm_16, the zoo theirs under
-build/baselines_x4 and build/gan3d_x4.
+Every kernel is then held to its plain version on the card at each
+signature the paths recorded (f32 and bf16; the blocked dot in int8 bit
+for bit), flash also at D = 128, D = 512 and the r3 level's 64^2, the up
+path also against cuDNN's f32 transposed conv; the unfused UNet against
+the reference golden. It prints the card line, the kernels JSON line
+and, last, {"ok": true, "device": {...}}; details go to
+chiprun_out/chip_smoke.json, the paths' files under build/.
 """
 
 from __future__ import annotations
@@ -295,7 +73,6 @@ import math
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -309,188 +86,92 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 GAE_CFG = {"n_subs": 16, "n_ovls": 4, "n_colors": 102, "n_feats": 64, "G": 9}
 CUBE = (1, 512, 512, 102)
 FUSED, FLASH, DOT = "gn_swish_conv3x3", "flash_attention", "blocked_dot"
-UP2 = "up2_conv3x3"
-# the f32 attention kernel below the flash gate (kernels/split_attention.py),
-# routed by kernels/attention.py:route (SPLIT_PER_RUN below)
-SPLIT = "split_attention"
-# path -> {(shape, dtype name): calls} of the split kernel in its counted run
-SPLIT_SIGS = {}
-# (shape, dtype, records grad, on CUDA) -> calls of spatial_attention since
-# zero_attention()
-_ATTN_CALLS = {}
-# calls of ops/fused_up.py:up2_conv3x3 per fused UNet forward (one Upsample
-# each of the four levels up), whose router launches the up path's kernel
-# for f32 and takes cuDNN's transposed conv for bf16
-UPS_PER_FORWARD = 4
-# fused Blocks per UNet forward: 54 on the wgmma route and the final conv
-# (Cout = 3) on the thin one
-BLOCKS_PER_FORWARD = 55
+UP2, SPLIT, ATTENTION = "up2_conv3x3", "split_attention", "attention"
 PROBE = "int8_probe"
-# path -> (config, its model.diffusion changed by, launches per cube of each kernel)
-R3, R3_DDIM = "pavia_x4_r3", "pavia_x4_r3_ddim"
-PATHS = {
-    # 55 fused Blocks per UNet forward x t_start=4; attention below the gate
-    R3: ("pavia_x4_r3.json", {}, {FUSED: 220, FLASH: 0}),
-    # the same with the DDIM sampler, 4 steps, eta 0; t_start removed (the JAX
-    # package refuses it with DDIM): 55 fused Blocks x 4 UNet forwards
-    R3_DDIM: ("pavia_x4_r3.json", {"sampler": "ddim", "ddim_steps": 4, "t_start": None},
-              {FUSED: 220, FLASH: 0}),
-    # 55 fused Blocks and 5 flash attentions per forward x T=20
-    "pavia_x4": ("pavia_x4.json", {}, {FUSED: 1100, FLASH: 100}),
-}
-# the bf16 flagship path, the port's bench at its defaults (512x512x102,
-# image_size 512, batch 1, bf16, fused): its two rows, each with its launches
-# per cube (55 fused Blocks per UNet forward; attention only in the mid
-# block, at 32^2, below the flash gate)
+R3, R3_DDIM, X4 = "pavia_x4_r3", "pavia_x4_r3_ddim", "pavia_x4"
+# the main paths' model.diffusion changes (a None value removes the key):
+# DDIM takes no t_start in the JAX package
+DIFFUSION = {R3: {}, R3_DDIM: {"sampler": "ddim", "ddim_steps": 4, "t_start": None}, X4: {}}
+# the port's bench at its defaults (512^2 x 102, bf16, fused): its two rows
 BENCH, BENCH_FULL = "bench_x4_bf16", "bench_x4_bf16:full_chain"
-BENCH_PATHS = {BENCH: {FUSED: 220, FLASH: 0}, BENCH_FULL: {FUSED: 1100, FLASH: 0}}
-# stage-2 training under configs/pavia_x4_r3.json through the port's driver:
-# TRAIN_STEPS steps (no kernel launch: training runs the unfused autograd
-# UNet), then one validation of 3 scenes x 3 chains, each 55 fused Blocks
-# per UNet forward x t_start=4 at 128^2 ... 8^2 (attention at 16^2 and 8^2,
-# on the split kernel)
+# stage-2 training under configs/pavia_x4_r3.json: TRAIN_STEPS steps, then
+# one validation of 3 scenes x 3 chains on the fused UNet
 TRAIN, TRAIN_STEPS = "train_r3", 12
-TRAIN_VAL = {FUSED: 55 * 4 * 3 * 3, FLASH: 0}
 TRAIN_SCENES, TRAIN_SCENE_HW, VAL_HW = 8, 256, 128
-# SR3 16->128 inference through the port's CLI (cli.infer, --process_mode
-# grid) under configs/sr_sr3_16_128.json at full width, fused Blocks: the
-# val split is INFER_IMAGES seeded 128^2 face-like PNGs; each image's
-# continous chain runs the val schedule cut to INFER_T steps (cosine), 55
-# fused Blocks per UNet forward at B=1 (attention at 16^2 and the mid block,
-# on the split kernel); INFER_REPLAY steps replayed kernels against plain
+# SR3 16 -> 128 through cli.infer: INFER_IMAGES faces, the val schedule cut
+# to INFER_T steps; INFER_REPLAY steps replayed kernels against plain
 INFER, INFER_IMAGES, INFER_T, INFER_REPLAY = "infer_sr3_16_128", 2, 200, 4
-INFER_PER_IMAGE = {FUSED: 55 * INFER_T, FLASH: 0}
-# H-sharded inference (super_resolve_spatial) under configs/pavia_x4.json on
-# a ('data', 'space') = (1, 2) mesh: two ranks, each holding 256 of the 512
-# latent rows (16 of 32 at the deepest level), spawned on the one card and
-# joined over gloo (NCCL refuses two ranks on one device). Each replays the
-# pavia_x4 cube's draws (its seed 2) and launches 55 fused Blocks per UNet
-# forward on its shard, with halo rows, and 5 flash attentions on the
-# gathered 128^2 level, x T=20. Two ranks share one card, so its times are
-# not multi-card times. The JAX package holds its sharded chain to 1e-4 of
-# its single-device chain (printed here, not gated: the kernel's per-row
-# stats take atomicAdds in no fixed order, so two single-device chains
-# differ too); the gate is TOL_UNET.
+# H-sharded inference under configs/pavia_x4.json on a (1, 2) mesh, each
+# rank replaying the pavia_x4 cube's draws (seed 2). The JAX package holds
+# its sharded chain to 1e-4 of one device's (printed here, not gated: the
+# kernel's per-row stats take atomicAdds in no fixed order, so two
+# single-device chains differ too); the gate is TOL_UNET.
 SPATIAL, SPATIAL_MESH, SPATIAL_SEED = "pavia_x4_spatial", (1, 2), 2
-SPATIAL_PER_RANK = {FUSED: 1100, FLASH: 100}
-# the seed of its one timed cube after the counted one (3 timed cubes before
-# the data-parallel paths came: one keeps the script inside its time)
-SPATIAL_TIMED_SEED = 3
 SPATIAL_JAX_TOL = 1e-4
 # the ranks gather the same latent bit for bit and each decodes it: their
 # cubes (in [0, 1]) may differ in the last bits of cuDNN's convolutions
 SPATIAL_RANK_TOL = 1e-6
-TWO_RANKS = "two ranks share one card (gloo), not a multi-card time"
-# the sampler's latent chunks: configs/pavia_x4_r3.json with
-# model.diffusion.latent_chunk CHUNK on CHUNK_CUBES cubes, the JAX README's
-# throughput mode: 4 x 9 = 36 latents in 3 chains of 12, 220 fused Blocks
-# each. Its reference is the same batch unchunked (one chain of 36) from the
-# same replayed draws: the two are held to TOL_UNET (the stats atomics alone
-# move a chain by about 3e-3).
+# latent_chunk CHUNK on CHUNK_CUBES cubes (36 latents in 3 chains of 12),
+# against the same batch unchunked from the same draws (the stats atomics
+# alone move a chain by about 3e-3)
 CHUNKED, CHUNKED_WHOLE, CHUNK, CHUNK_CUBES = ("pavia_x4_r3_chunked",
                                               "pavia_x4_r3_chunked:unchunked", 12, 4)
-CHUNK_PATHS = {CHUNKED: {FUSED: 3 * 220, FLASH: 0}, CHUNKED_WHOLE: {FUSED: 220, FLASH: 0}}
-# whole-scene tiled inference: one seeded SR cube the size of the Pavia
-# Centre scene through super_resolve_tiled(TILE, OVERLAP) under the r3
-# config: tile origins y 0, 480, 584 and x 0, 203, six 512^2 tiles of 220
-# fused Blocks each (the r3 cube's launch signatures)
+# one seeded SR cube the size of the Pavia Centre scene through
+# super_resolve_tiled(TILE, OVERLAP) under the r3 config: six 512^2 tiles
 TILED, SCENE, TILE, OVERLAP = "pavia_x4_tiled", (1096, 715, 102), 512, 32
 TILE_ORIGINS = [(y, x) for y in (0, 480, 584) for x in (0, 203)]
-TILED_PER_SCENE = {FUSED: len(TILE_ORIGINS) * 220, FLASH: 0}
-# data-parallel inference: the r3 config's cube (9 latents) through
-# super_resolve with a 'data' mesh over two ranks spawned on the one card
-# (gloo: NCCL refuses two ranks on one device), replaying no draws: each rank
-# draws the whole batch's x_init and noise from the same generator as one
-# process does, wrap-pads the 9 latents to 10 and runs its 5: 220 fused-Block
-# launches per rank at B=5. The gathered latent is held to the single
-# process's from the same generator (TOL_UNET). Two ranks share one card, so
-# its times are not multi-card times.
+# the r3 cube through super_resolve with a 'data' mesh over two ranks on
+# the one card (gloo: NCCL refuses two ranks on one device): each rank
+# draws the whole batch as one process does, wrap-pads 9 latents to 10 and
+# runs its 5; the gathered latent against one process's (TOL_UNET)
 R3_DP, R3_DP_SEED = "pavia_x4_r3_dp", 2
-R3_DP_PER_RANK = {FUSED: 220, FLASH: 0}
-# data-parallel training: train_r3's step (the r3 pipeline's train_step_from_hr
-# on TRAIN_DP_CROPS HR crops of 128^2 x 102 = 36 latents) for TRAIN_DP_STEPS
-# steps over two ranks on the one card (18 latents each, the gradients
-# all-reduced over gloo) from the weights and draws of a one-rank run of the
-# same steps; then one validation cube of 128^2 on each rank (9 latents padded
-# to 10: 220 fused launches per rank at B=5). The training steps launch no
-# kernel. Rank 0's first all-reduced gradients are held to the one-rank
-# run's (TOL_STEP_GRAD of the largest |g|, as a card step is held to the
-# CPU's) and its Adam moments after the steps to the one rank's
-# (TOL_TRAIN_DP_ADAM of each leaf's largest |value|): these two catch a
-# gradient summed where it should be averaged (twice the gradient, and
-# twice Adam's first moment) and draws cut wrong. The share of weights further than 0.05 lr from
-# the one rank's is held to TRAIN_DP_SHARE_OFF: it catches draws cut wrong
-# (gradients of another batch), not a sum, since Adam's step does not see a
-# gradient's scale. Adam moves a weight by about lr times its gradient's
-# sign, so where a gradient near 0 takes the other sign between cuDNN's
-# batch-36 and batch-18 convolutions the weight lands about 2 lr away, and
-# later gradients follow. Measured on the H100 (PERF.md 6): latents from the
-# trained GAE flip the sign of 9.4e-5 of the first gradients and put 7.9e-4
-# of the weights past 0.05 lr, Adam's moments 5.9e-4 off; a seeded, untrained
-# GAE flips 3.9e-7, and 1.1e-6 of the weights, 1.7e-4, in the same process
-# or alone. The worst weight over lr and the share of sign flips are
-# reported, not held: two Adam runs stay within about 2 lr a step of each
-# other whatever their gradients. The ranks' states bit for bit alike.
+# data-parallel training: train_r3's step (TRAIN_DP_CROPS HR crops, 36
+# latents) for TRAIN_DP_STEPS steps over two ranks on the one card (18
+# latents each) from the weights and draws of a one-rank run; then one
+# validation cube of 128^2 a rank. Rank 0's first all-reduced gradients are
+# held to the one-rank run's (TOL_STEP_GRAD of the largest |g|) and its Adam
+# moments to the one rank's (TOL_TRAIN_DP_ADAM of each leaf's largest
+# |value|): these catch a gradient summed where it should be averaged and
+# draws cut wrong. The share of weights further than 0.05 lr from the one
+# rank's is held to TRAIN_DP_SHARE_OFF: Adam moves a weight by about lr
+# times its gradient's sign, so where a gradient near 0 takes the other
+# sign between cuDNN's batch-36 and batch-18 convolutions the weight lands
+# about 2 lr away. Measured on the H100 (PERF.md): latents of the trained
+# GAE put 7.9e-4 of the weights past 0.05 lr, Adam's moments 5.9e-4 off; a
+# seeded GAE's 1.1e-6 (tools/train_dp_divergence.py runs both).
 TRAIN_DP, TRAIN_DP_STEPS, TRAIN_DP_CROPS, TRAIN_DP_SEED = "train_r3_dp", 3, 4, 61
-TRAIN_DP_VAL_PER_RANK = {FUSED: 220, FLASH: 0}
 TOL_TRAIN_DP_ADAM, TRAIN_DP_SHARE_OFF = 1e-2, 1e-2
-UNET_PATHS = (*PATHS, *BENCH_PATHS, TRAIN, INFER, SPATIAL, *CHUNK_PATHS, TILED, R3_DP,
-              TRAIN_DP)
-# the split kernel's launches per counted run (or rank) where the path fixes
-# them: r3 5 calls at 64^2 and the mid block at 32^2 per UNet forward x 4,
-# x4 the mid block x 20; the bf16 rows keep the einsum route
-SPLIT_PER_RUN = {R3: 24, R3_DDIM: 24, "pavia_x4": 20, CHUNKED: 3 * 24, CHUNKED_WHOLE: 24,
-                 TILED: len(TILE_ORIGINS) * 24, BENCH: 0, BENCH_FULL: 0}
-SPLIT_PER_RANK = {SPATIAL: 20, R3_DP: 24}
-# train_r3's step with model.unet.remat on, against the same step without it
-# from the same weights, batch and dropout generator: the loss and every
-# gradient leaf within tests/test_remat.py's atol 1e-4 and rtol 1e-3; then
-# REMAT_STEPS steps of each (median after 2 warm-up), peak memory of each
-REMAT, REMAT_STEPS = "train_r3_remat", 5
+# train_r3's step with model.unet.remat on against the same step without it
+# from the same weights, batch and dropout generator: tests/test_remat.py's
+# atol and rtol on the loss and every gradient
+REMAT = "train_r3_remat"
 TOL_REMAT_ABS, TOL_REMAT_REL = 1e-4, 1e-3
-# unconditional generation under configs/sample_ddpm_16.json at its full
-# width (the discrete-t BatchNorm UNet, unfused: no kernel of the port): one
-# train step of SAMPLE_BATCH HR images of 128^2 x 3 against the CPU's, then
-# DDPMModel.sample of SAMPLE_N images; the config's 2000-step ancestral chain
-# when SAMPLE_CHAIN_S holds 2000 UNet forwards, else DDIM over SAMPLE_DDIM_STEPS
-SAMPLE, SAMPLE_BATCH, SAMPLE_N = "sample_ddpm_16", 4, 2
-SAMPLE_CHAIN_S, SAMPLE_DDIM_STEPS = 30.0, 100
+# configs/sample_ddpm_16.json at its full width (the discrete-t BatchNorm
+# UNet, unfused): one train step of SAMPLE_BATCH HR images of 128^2 x 3 on
+# the card against the CPU's, then DDPMModel.sample of SAMPLE_N images by
+# DDIM over SAMPLE_DDIM_STEPS (2000 ancestral steps take about 40 s)
+SAMPLE, SAMPLE_BATCH, SAMPLE_N, SAMPLE_DDIM_STEPS = "sample_ddpm_16", 4, 2, 100
 # the BatchNorm running statistics after that step, card against CPU: max
 # |diff| over max |CPU| per buffer (means over 65536 values a channel)
 TOL_STEP_STATS = 1e-4
-# the same config through the port's CLI (cli.sample): -p train for
-# SAMPLE_CLI_STEPS steps of 4 seeded 128^2 PNGs (a save and a sample at the
-# last), then -p val on that checkpoint; both phases' schedules cut to
-# SAMPLE_CLI_T steps (linear). No kernel of the port runs.
+# the same config through cli.sample: -p train for SAMPLE_CLI_STEPS steps
+# of the faces, then -p val on that checkpoint; both schedules cut to
+# SAMPLE_CLI_T steps
 SAMPLE_CLI, SAMPLE_CLI_STEPS, SAMPLE_CLI_T = "sample_cli_ddpm_16", 4, 100
 FACES = 4  # seeded 128^2 HR images (and their 16 -> 128 SR images) for both CLIs
 # color_correction_torch on the card against the numpy color_correction
 TOL_COLOR = 1e-5
-# torch.profiler drops device events: every flash row read 0 events in
-# --profile runs once the traced cubes had come first, and on another H100
-# a fresh process's two sessions each saw 4 of 5 launches. So the flash
-# rows' prepass/attention split is timed with CUDA events on the C entry's
-# phases (flash_times), and no gate depends on a trace.
-# stage-1 GAE training through the port's CLI (cli.ae) at the Pavia GAE's
-# width, device-resident scenes: 8 HR crops of 128^2 x 102 a step, so 72
-# group images through the shared encoder and decoder. 64 augmented items
-# / 8 = 8 steps an epoch: 2 epochs cut at TRAIN_GAE_STEPS end on the
-# second epoch's save. The GAE is cuDNN convolutions: no kernel of the port.
+# stage-1 GAE training through cli.ae at the Pavia GAE's width,
+# device-resident scenes: 8 HR crops of 128^2 x 102 a step, 2 epochs cut
+# at TRAIN_GAE_STEPS, ending on the second epoch's save
 TRAIN_GAE, TRAIN_GAE_STEPS, TRAIN_GAE_BATCH, TRAIN_GAE_EPOCHS = "train_gae", 12, 8, 2
 # the perceptual term's weight in the card-vs-CPU check (the shipped 1e-3
 # would hide the term under the loss's rtol), and the bands it replays
 TRAIN_GAE_P_WEIGHT, TRAIN_GAE_BANDS = 1.0, (5, 50, 97)
-# the baseline zoo through the port's CLI (cli.baselines) at full width on
-# Pavia's 102 bands, the README's baseline command: each model trained at the
-# CLI's defaults (batch 16 of HSTrainingData crops, HR 32 x scale, Adam 1e-4)
-# for BASELINE_STEPS steps (--max_steps) on make_train_data's 8 scenes, then
-# cli.baselines test on its checkpoint over 1 seeded scene (gt_size 64); edsr
-# at scale 2 (the reference pins it), the others at 4. CEGATSR, which no CLI
-# trains, as one forward at its defaults on a batch of the same size. Each
-# model's reference golden (tests/golden/*_forward_golden.npz) on the card at
-# the JAX tests' tolerance, and one step (CEGATSR: one forward) on the card
-# against the CPU's, in f64, from the trained full-width weights on one item of
-# LR 8^2 x 102. No kernel of the port runs: cuDNN convolutions.
+# the baseline zoo through cli.baselines at its defaults on 102 bands, each
+# model BASELINE_STEPS steps, then cli.baselines test over 1 scene; edsr at
+# scale 2 (the reference pins it). CEGATSR, which no CLI trains, as one
+# forward on a batch of BASELINE_BATCH
 BASELINES, BASELINE_STEPS, BASELINE_BATCH = "baselines_x4", 3, 16
 BASELINE_MODELS = (("sspsr", 4), ("gelin", 4), ("mcnet", 4), ("gdrrn", 4), ("edsr", 2))
 # golden file -> (its width, the model's inputs, atol); rtol GOLDEN_RTOL
@@ -507,35 +188,42 @@ GOLDEN_RTOL = 1e-4
 # an f64 gradient leaf whose largest |g| is below GRAD_NOISE x the largest of
 # all leaves is 0 but for rounding; it is held to that floor (grads_against_cpu)
 GRAD_NOISE = 1e-9
-# the 3-D GAN through the port's CLI (cli.gan_train) at its defaults (n_bands
-# 31, fis 144, scale 4, batch 4, Adam 1e-4) on a seeded stacked-scene .npy of
-# GAN3D_SCENES scenes of 31 x GAN3D_HW^2 (9 tiles of 144^2 each), for
-# GAN3D_STEPS steps; both nets' goldens on the card, and one D step and one G
-# step on the card against the CPU's, in f64, from the trained weights on one
-# tile of LR 9^2 (D's running statistics after the step too)
+# the 3-D GAN through cli.gan_train at its defaults on a seeded stacked-scene
+# .npy of GAN3D_SCENES scenes of 31 x GAN3D_HW^2, GAN3D_STEPS steps
 GAN3D, GAN3D_STEPS, GAN3D_SCENES, GAN3D_HW = "gan3d_x4", 3, 2, 512
-# DAQ quantization and the refiners at the reference's widths, f32 on the
-# card: ResBlockDAQ, SSBDAQ and ResAttentionBlockDAQ at n_feats DAQ_FEATS and
-# a_bit = w_bit in DAQ_BITS on DAQ_CROPS crops of DAQ_HW^2 (forward and
-# backward); AttentionNet(102, 64) on one 512^2 x 102 cube; post_unet(102,
-# 102) at its defaults (inner 8, image_size 128) on 4 x 128^2 x 102 in train
-# mode; Codebook(4096, 512) on 1024 vectors. No kernel of the port runs but
-# the split attention kernel, in post_unet's f32 forward on the card.
+# DAQ quantization and the refiners at the reference's widths: ResBlockDAQ,
+# SSBDAQ and ResAttentionBlockDAQ at n_feats DAQ_FEATS and a_bit = w_bit in
+# DAQ_BITS on DAQ_CROPS crops of DAQ_HW^2; AttentionNet(102, 64) on one
+# 512^2 x 102 cube; post_unet(102, 102) on 4 x 128^2 x 102 in train mode;
+# Codebook(4096, 512) on 1024 vectors. No kernel of the port runs but the
+# split attention kernel, in post_unet's f32 forward on the card.
 DAQ, DAQ_CROPS, DAQ_HW, DAQ_FEATS, DAQ_BITS, DAQ_HELD = "daq_refiners", 16, 128, 64, (4, 8), 4
-# no kernel of the port, but for the split attention kernel in post_unet's forward (DAQ)
 ZOO_PATHS = (BASELINES, GAN3D, DAQ)
-# the paths whose split kernel signatures are checked, timed and counted
-SPLIT_PATHS = (*UNET_PATHS, DAQ)
-# flash checks beside the path's own shape: D=128 (two heads) and D=512
-# with a ragged S, both past the 8192-token gate, and pavia_x4_r3's 64^2
-# attention (4096 tokens, D=512), which the gate keeps on the einsum path:
-# its row times both routes, for the gate's crossover. Each shape, and
-# pavia_x4's own, also with bf16 q, k and v, which no path launches.
+# flash checks beside pavia_x4's own shape: D=128 (two heads) and D=512 with
+# a ragged S, both past the 8192-token gate, and pavia_x4_r3's 64^2
+# attention (4096 tokens, D=512); each, and pavia_x4's, also with bf16 q, k, v
 FLASH_EXTRA = ((9, 16384, 2, 128), (4, 8200, 1, 512), (9, 4096, 1, 512))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_BF16 = 989e12
+# The UNet forwards of each fused path's counted run (a rank's for the
+# two-rank paths, an image's for INFER) with the UNet it builds (a config
+# under configs/, or "bench", the port's bench at its defaults), the batch
+# and the latent's side. Every launch count the paths are held to comes
+# from this table and ``launches_per_forward``.
+FORWARDS = {
+    R3: ("pavia_x4_r3.json", 4, 9, 512),          # t_start 4
+    R3_DDIM: ("pavia_x4_r3.json", 4, 9, 512),     # DDIM, 4 steps
+    X4: ("pavia_x4.json", 20, 9, 512),            # T = 20
+    BENCH: ("bench", 4, 9, 512),                  # t_start 4
+    BENCH_FULL: ("bench", 20, 9, 512),
+    TRAIN: ("pavia_x4_r3.json", 3 * 3 * 4, 9, VAL_HW),  # 3 val scenes x 3 chains
+    INFER: ("sr_sr3_16_128.json", INFER_T, 1, 128),
+    SPATIAL: ("pavia_x4.json", 20, 9, 512),       # an H-shard's
+    CHUNKED: ("pavia_x4_r3.json", 3 * 4, CHUNK, 512),
+    CHUNKED_WHOLE: ("pavia_x4_r3.json", 4, CHUNK_CUBES * 9, 512),
+    TILED: ("pavia_x4_r3.json", len(TILE_ORIGINS) * 4, 9, TILE),
+    R3_DP: ("pavia_x4_r3.json", 4, 5, 512),       # 9 latents padded to 10
+    TRAIN_DP: ("pavia_x4_r3.json", 4, 5, VAL_HW),  # a validation cube
+}
 
 # kernel vs plain version on the card: the same bf16 weights and (bf16
 # input) activations, f32 sums in another order (and a rare one-ulp flip of
@@ -574,52 +262,230 @@ def card_line():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps, warmup=1):
-    """Mean milliseconds of fn() on the current stream, CUDA events."""
+def kernel_ms(launch):
+    """Device milliseconds of one ``launch()``: 10 launches captured back
+    to back in one CUDA graph, the graph replayed once untimed and then 3
+    times between two CUDA events. The host's launch work stays out of
+    the time."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, calls=20, reps=5):
-    """Mean device milliseconds of one fn(): `calls` back-to-back calls
-    captured in one CUDA graph, replayed `reps` times, CUDA events. The
-    host's launch cost, as long as a kernel of a few microseconds, stays
-    out of the time."""
-    import torch
-
+    calls, reps = 10, 3
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        launch()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
-            fn()
-    return cuda_ms(graph.replay, reps) / calls
+            launch()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
-# ------------------------------------------------------------ signatures
+def relaunch(call):
+    """``call()``, a wrapper call that launches one kernel, and a function
+    that launches that kernel again alone: its C entry on the same
+    arguments through ``build.launch``, overwriting the same outputs,
+    without the wrapper's host work. The function holds every tensor the
+    launch was given, so none of its buffers is freed while it is used.
+    Returns (the call's result, the function)."""
+    from hsi_dmgasr_tpu_torch.kernels import build
+
+    real, seen = build.launch, []
+
+    def rec(*args):
+        seen.append(args)
+        return real(*args)
+
+    with mock.patch.object(build, "launch", rec):
+        out = call()
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} kernel launches in one wrapper call")
+    return out, lambda: real(*seen[0])
+
+
+# ------------------------------------------------------- launches and calls
+
+
+def path_unet(source):
+    """The UNet a path builds, on the meta device (no memory, no weights):
+    from ``source``, a config under configs/ with its fused Blocks on (as
+    every fused path sets them), or "bench", the port's bench at its
+    defaults."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch import bench
+    from hsi_dmgasr_tpu_torch.config import load
+    from hsi_dmgasr_tpu_torch.models.networks import define_G
+
+    with torch.device("meta"):
+        if source == "bench":
+            return bench.Bench(bench.parse_args([]), torch.device("meta")).unet
+        opt = load(os.path.join(ROOT, "configs", source))
+        opt["model"]["unet"]["fuse"] = True
+        return define_G(opt)[0]
+
+
+def launches_per_forward(unet, batch, side, sharded=False):
+    """The route counts of one forward of ``unet`` on the card at (batch,
+    side, side), in eval mode and its weights' dtype, as the counters keep
+    them: with ``UNet.fused_routes``, each fused Block on the fused
+    kernel's route for its Cout and each fused Upsample on the up path's
+    kernel where it ``fits`` and on the transposed conv otherwise (on
+    neither router on an H-shard, ``sharded``: its own transposed conv);
+    each SelfAttention on ``attention.route`` of its level's (S, D)."""
+    from hsi_dmgasr_tpu_torch.kernels import attention, fused_conv, up2_conv
+    from hsi_dmgasr_tpu_torch.models.unet import Block, Downsample, Upsample
+
+    dtype = next(unet.parameters()).dtype
+    blocks, fused = unet.eval().fused_routes()
+    n = {"fused": dict.fromkeys(fused_conv.LAUNCHES_BY_ROUTE, 0),
+         ATTENTION: dict.fromkeys(attention.LAUNCHES_BY_ROUTE, 0),
+         UP2: dict.fromkeys(up2_conv.LAUNCHES_BY_ROUTE, 0)}
+    if blocks:
+        for m in unet.modules():
+            if isinstance(m, Block):
+                n["fused"][fused_conv.route(m.block[3].out_channels)] += 1
+    level = side
+    for layer in (*unet.downs[1:], *unet.mid, *unet.ups):
+        if isinstance(layer, Downsample):
+            level //= 2
+        elif isinstance(layer, Upsample):
+            level *= 2
+            c = layer.conv.out_channels
+            if fused and not sharded:
+                n[UP2]["kernel" if up2_conv.fits(dtype, c, c) else "transpose"] += 1
+        elif layer.with_attn:
+            a = layer.attn
+            d = a.qkv.in_channels // a.n_head
+            n[ATTENTION][attention.route(dtype, True, level * level, d, False,
+                                         batch * a.n_head)] += 1
+    return n
+
+
+def expected_launches(path, scale=1):
+    """The route counts after ``path``'s counted run (a rank's, an image's;
+    times ``scale``): ``launches_per_forward`` of the UNet it builds times
+    its forwards in FORWARDS."""
+    source, forwards, batch, side = FORWARDS[path]
+    per = launches_per_forward(path_unet(source), batch, side, sharded=path == SPATIAL)
+    return {k: {r: c * forwards * scale for r, c in routes.items()} for k, routes in per.items()}
+
+
+def kernels_of(routes):
+    """Each kernel's launches in route counts: the Blocks on either of
+    the fused kernel's routes, flash and split, and the up path's kernel."""
+    return {FUSED: sum(routes["fused"].values()), FLASH: routes[ATTENTION]["flash"],
+            SPLIT: routes[ATTENTION]["split"], UP2: routes[UP2]["kernel"], DOT: 0}
+
+
+def zero_counts():
+    """Every launch counter and route count of the port to 0."""
+    from hsi_dmgasr_tpu_torch.kernels import attention, up2_conv
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
+
+    fc.LAUNCHES = fa.LAUNCHES = sa.LAUNCHES = bd.LAUNCHES = 0
+    for routes in (fc.LAUNCHES_BY_ROUTE, attention.LAUNCHES_BY_ROUTE, up2_conv.LAUNCHES_BY_ROUTE):
+        routes.update(dict.fromkeys(routes, 0))
+
+
+def counted():
+    """The route counts since ``zero_counts``, and each kernel's own
+    launch counter."""
+    from hsi_dmgasr_tpu_torch.kernels import attention, up2_conv
+    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
+    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
+    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
+    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
+
+    routes = {"fused": dict(fc.LAUNCHES_BY_ROUTE), ATTENTION: dict(attention.LAUNCHES_BY_ROUTE),
+              UP2: dict(up2_conv.LAUNCHES_BY_ROUTE)}
+    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, SPLIT: sa.LAUNCHES,
+                UP2: up2_conv.LAUNCHES_BY_ROUTE["kernel"], DOT: bd.LAUNCHES}
+    return routes, launches
+
+
+def no_launches(name, split=0):
+    """No kernel launched since ``zero_counts`` but ``split`` launches of
+    the split attention kernel (None: any number, the unfused UNet's
+    attention). Returns the launches."""
+    launches = counted()[1]
+    if split is None:
+        split = launches[SPLIT]
+    if launches != {FUSED: 0, FLASH: 0, SPLIT: split, UP2: 0, DOT: 0}:
+        raise AssertionError(f"[{name}] launched {launches}, expected no kernel but {split} "
+                             "split attention launches")
+    return launches
+
+
+def call_route(call):
+    """The route ``attention.route`` gives a recorded attention call."""
+    from hsi_dmgasr_tpu_torch.kernels import attention
+
+    shape, dtype, grad, cuda = call
+    return attention.route(dtype, cuda, shape[1], shape[3], grad, shape[0] * shape[2])
+
+
+def check_routes(name, calls):
+    """The attention router's counts since ``zero_counts`` against the
+    routes of the calls ``recording`` recorded, and the split kernel's
+    launches against its route's: every CUDA f32 call below the flash
+    gate that records no graph, at a shape the kernel takes, launched it.
+    Returns the routes."""
+    routes, launches = counted()
+    want = dict.fromkeys(routes[ATTENTION], 0)
+    for call, n in calls[ATTENTION].items():
+        want[call_route(call)] += n
+    if routes[ATTENTION] != want or launches[SPLIT] != want["split"]:
+        raise AssertionError(f"[{name}] attention routes {routes[ATTENTION]} ({launches[SPLIT]} "
+                             f"split launches), the recorded calls' routes {want}")
+    return want
+
+
+def check_launches(name, want, calls):
+    """The counts since ``zero_counts`` against ``want``
+    (``expected_launches``): every route count, every kernel's own
+    counter, no blocked dot, and the calls ``recording`` recorded (each
+    counted once, attention on its route). Returns the launches."""
+    routes, launches = counted()
+    check_routes(name, calls)
+    recorded = {FUSED: sum(calls[FUSED].values()), FLASH: sum(calls[FLASH].values()),
+                UP2: sum(calls[UP2].values())}
+    log(f"[{name}] launches {launches}, routes {routes}; {len(calls[FUSED])} fused signatures")
+    if (routes != want or launches != kernels_of(want)
+            or recorded != {FUSED: launches[FUSED], FLASH: launches[FLASH],
+                            UP2: sum(want[UP2].values())}):
+        raise AssertionError(f"[{name}] routes {routes}, launches {launches}, recorded calls "
+                             f"{recorded}; expected routes {want}")
+    return launches
 
 
 @contextmanager
-def recording(fused_calls, flash_calls, up2_calls):
-    """Record the signature of every fused-Block, flash and up-path call the
-    UNet makes. The real wrappers still run, and count their own launches."""
+def recording():
+    """Record the signature of every fused-Block, flash, up-path and
+    attention call the UNet makes: yields {kind: {signature: calls}}. The
+    real functions still run, and count their own launches."""
+    import torch
+
     from hsi_dmgasr_tpu_torch.kernels import attention as attn_mod
     from hsi_dmgasr_tpu_torch.models import unet as unet_mod
 
+    calls = {FUSED: {}, FLASH: {}, UP2: {}, ATTENTION: {}}
     real_fused, real_flash = unet_mod.gn_swish_conv3x3, attn_mod.flash_attention
-    real_up2 = unet_mod.up2_conv3x3
+    real_up2, real_attn = unet_mod.up2_conv3x3, unet_mod.spatial_attention
+
+    def count(kind, sig):
+        calls[kind][sig] = calls[kind].get(sig, 0) + 1
 
     def rec_fused(x, gn_scale, gn_bias, kernel, bias, **kw):
         x2 = kw.get("x2")
@@ -630,43 +496,53 @@ def recording(fused_calls, flash_calls, up2_calls):
                dtype_name(x.dtype))
         if kw.get("halo") is not None:  # an H-shard's launch: which shard
             sig += (shard_position(kw["mesh"]),)
-        fused_calls[sig] = fused_calls.get(sig, 0) + 1
+        count(FUSED, sig)
         return real_fused(x, gn_scale, gn_bias, kernel, bias, **kw)
 
     def rec_flash(q, k, v, scale):
-        sig = (tuple(q.shape), dtype_name(q.dtype))
-        flash_calls[sig] = flash_calls.get(sig, 0) + 1
+        count(FLASH, (tuple(q.shape), dtype_name(q.dtype)))
         return real_flash(q, k, v, scale)
 
     def rec_up2(x, kernel, bias=None, **kw):
-        sig = (tuple(x.shape), kernel.shape[-1], bias is not None, dtype_name(x.dtype))
-        up2_calls[sig] = up2_calls.get(sig, 0) + 1
+        count(UP2, (tuple(x.shape), kernel.shape[-1], bias is not None, dtype_name(x.dtype)))
         return real_up2(x, kernel, bias, **kw)
+
+    def rec_attn(q, k, v, scale, **kw):
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        count(ATTENTION, (tuple(q.shape), q.dtype, grad, q.is_cuda))
+        return real_attn(q, k, v, scale, **kw)
 
     with mock.patch.object(unet_mod, "gn_swish_conv3x3", rec_fused), \
             mock.patch.object(attn_mod, "flash_attention", rec_flash), \
-            mock.patch.object(unet_mod, "up2_conv3x3", rec_up2), attention_recording():
-        yield
+            mock.patch.object(unet_mod, "up2_conv3x3", rec_up2), \
+            mock.patch.object(unet_mod, "spatial_attention", rec_attn):
+        yield calls
 
 
-@contextmanager
-def attention_recording():
-    """Record every UNet attention call (shape, dtype, whether it records a
-    graph, whether on CUDA) into _ATTN_CALLS, for ``attention_routes``."""
-    from hsi_dmgasr_tpu_torch.models import unet as unet_mod
+def merged(runs):
+    """The recorded calls of several runs (ranks), summed."""
+    out = {kind: {} for kind in runs[0]}
+    for calls in runs:
+        for kind, sigs in calls.items():
+            for sig, n in sigs.items():
+                out[kind][sig] = out[kind].get(sig, 0) + n
+    return out
 
-    real_attn = unet_mod.spatial_attention
 
-    def rec_attn(q, k, v, scale, **kw):
-        import torch
+def counted_run(name, run, path=None):
+    """``run()`` with every count at 0 before it and its calls recorded,
+    then the counts held to ``expected_launches`` of ``path`` (or
+    ``name``). Returns its output, calls and launches."""
+    import torch
 
-        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-        key = (tuple(q.shape), q.dtype, grad, q.is_cuda)
-        _ATTN_CALLS[key] = _ATTN_CALLS.get(key, 0) + 1
-        return real_attn(q, k, v, scale, **kw)
+    zero_counts()
+    with recording() as calls:
+        out = run()
+    torch.cuda.synchronize()
+    return out, calls, check_launches(name, expected_launches(path or name), calls)
 
-    with mock.patch.object(unet_mod, "spatial_attention", rec_attn):
-        yield
+
+# ------------------------------------------------------------ signatures
 
 
 @contextmanager
@@ -825,151 +701,17 @@ def make_inputs(sig, device, seed):
     return args, kw
 
 
-def pick_bound(nbytes, flops):
-    """(bound_ms, bound_by) against the H100's peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def bound(sig):
-    """Fused Block: each input read once, each output written once,
-    activations in the signature's dtype (4 or 2 bytes), bf16 weights. An
-    f32 input's conv is two bf16 products (its activation's hi and lo
-    parts), the time of one at the TF32 rate."""
-    (b, h, w, c), c2, cout, tb, res, sin, sin2, emit, proj, dt = sig[:10]
-    ct, pix = c + c2, b * h * w
-    pix_in = pix + (2 * b * w if len(sig) > 10 else 0)  # an H-shard also reads two halo rows
-    nbytes = (2 if dt == "bf16" else 4) * (pix_in * ct + pix * cout * (1 + res + proj))
-    nbytes += 2 * (9 + proj) * ct * cout + 4 * (b * h * 2 * (c * sin + c2 * sin2 + cout * emit))
-    return pick_bound(nbytes, (2 if dt == "bf16" else 4) * pix * cout * ct * (9 + proj))
-
-
-def up2_bound(sig):
-    """Up path: operations 2 B (2H)(2W) 4 C Cout counted once; x and the
-    output once in f32, the 3x3 weights once in f32."""
-    (b, h, w, c), cout = sig[:2]
-    return pick_bound(4.0 * (b * h * w * c + 4 * b * h * w * cout + 9 * c * cout),
-                      2.0 * b * 4 * h * w * 4 * c * cout)
-
-
-def check_up2(sig, seed):
-    """The up path's kernel at one recorded f32 signature: against its
-    plain version and cuDNN's f32 transposed conv, each within TOL_UP2 of
-    sum |x| |w|; its time through ``up2_conv3x3`` on weights packed once (as
-    ``Upsample`` keeps them), its launch alone in a CUDA graph, the plain
-    version's and the transposed conv's."""
-    import torch
-
-    from hsi_dmgasr_tpu_torch.kernels import up2_conv
-    from hsi_dmgasr_tpu_torch.ops import fused_up
-
-    (b, h, w, c), cout, with_bias, _ = sig
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((b, h, w, c), generator=gen, device="cuda")
-    kernel = torch.randn((3, 3, c, cout), generator=gen, device="cuda") / math.sqrt(9 * c)
-    bias = torch.randn((cout,), generator=gen, device="cuda") if with_bias else None
-    packed = up2_conv.pack_up2(fused_up.parity_taps(kernel))
-    launched = up2_conv.LAUNCHES_BY_ROUTE["kernel"]
-    got = fused_up.up2_conv3x3(x, kernel, bias, packed=packed)
-    if up2_conv.LAUNCHES_BY_ROUTE["kernel"] != launched + 1:
-        raise AssertionError(f"{UP2} {sig}: the f32 call did not take the kernel")
-    scale = fused_up.up2_conv3x3_transpose(x.abs(), kernel.abs())
-    errs = {}
-    for name, want in (("plain", fused_up.up2_conv3x3_parity(x, kernel, bias)),
-                       ("cudnn_f32", fused_up.up2_conv3x3_transpose(x, kernel, bias))):
-        rel = ((got - want).abs() / scale.clamp_min(1e-30)).max().item()
-        errs[name] = {"max_abs": (got - want).abs().max().item(), "max_rel_sum": rel}
-        if rel > TOL_UP2:
-            raise AssertionError(f"{UP2} {sig}: kernel vs {name} {errs[name]}")
-    del got, want, scale
-    ms = cuda_ms(lambda: fused_up.up2_conv3x3(x, kernel, bias, packed=packed), reps=5)
-    out = torch.empty((b, 2 * h, 2 * w, cout), device="cuda")
-    fn = up2_conv._entry()
-
-    def launch():
-        rc = fn(x.data_ptr(), packed.wpack.data_ptr(), None if bias is None else bias.data_ptr(),
-                out.data_ptr(), b, h, w, c, cout, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{UP2} launch failed: cudaError {rc}")
-    kernel_ms = graph_ms(launch, calls=10, reps=5)
-    plain_ms = cuda_ms(lambda: fused_up.up2_conv3x3_parity(x, kernel, bias), reps=2)
-    library_ms = cuda_ms(lambda: fused_up.up2_conv3x3_transpose(x, kernel, bias), reps=3)
-    b_ms, b_by = up2_bound(sig)
-    return {"signature": f"f32 B={b} {h}x{w} {c}->{cout}" + ("" if with_bias else " no bias"),
-            "level": f"{h}x{w}",
-            "errors": {"out": errs["cudnn_f32"], **errs}, "ms": ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bound_frac": b_ms / ms, "kernel_bound_frac": b_ms / kernel_ms,
-            "vs_library": ms / library_ms}
-
-
-def up2_rows(up2_sigs):
-    """``check_up2`` at every f32 signature the main paths recorded (the
-    kernel's route), each row with its calls per path and logged."""
-    import torch
-
-    rows = []
-    f32 = sorted((kv for kv in up2_sigs.items() if kv[0][-1] == "f32"),
-                 key=lambda kv: (kv[0][0][0], kv[0][0][1]))
-    for i, (sig, counts) in enumerate(f32):
-        row = check_up2(sig, seed=400 + i)
-        row["counts"] = counts
-        rows.append(row)
-        log(f"{UP2} {row['signature']:<28} {counts} abs {row['errors']['out']['max_abs']:.2e} "
-            f"of sum|x||w| "
-            f"{row['errors']['cudnn_f32']['max_rel_sum']:.2e} (plain "
-            f"{row['errors']['plain']['max_rel_sum']:.2e}) | ms {row['ms']:.3f} kernel alone "
-            f"{row['kernel_ms']:.3f} plain {row['plain_ms']:.3f} cudnn f32 {row['library_ms']:.3f} "
-            f"bound {row['bound_ms']:.3f} ({row['bound_by']}) of bound "
-            f"{row['kernel_bound_frac']:.3f} x cudnn {row['vs_library']:.3f}")
-        torch.cuda.empty_cache()
-    return rows
-
-
-def bare_launch(fc, args, kw, packed):
-    """A function that relaunches the fused kernel alone on the current
-    stream, with the arguments the wrapper gave it for this call (its
-    outputs are overwritten): the kernel's device time without the
-    wrapper's host work and GroupNorm fold, which the wrapper's own time
-    includes and which sets it at the small levels."""
-    import torch
-
-    real, rec = fc._entry, {}
-
-    def recording_entry():
-        fn = real()
-
-        def call(*a):
-            rec["fn"], rec["args"] = fn, a
-            return fn(*a)
-        return call
-
-    fc._entry = recording_entry
-    try:
-        keep = fc.gn_swish_conv3x3(*args, packed=packed, **kw)
-    finally:
-        fc._entry = real
-    fn, cargs = rec["fn"], rec["args"]
-
-    def launch():
-        rc = fn(*cargs[:-1], torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"fused kernel launch failed: cudaError {rc}")
-    launch.keep = (keep, args, kw, packed)  # the buffers the launch writes and reads
-    return launch
-
-
 def check_signature(sig, seed):
-    """Fused kernel vs plain version on the card, and the five times."""
+    """The fused kernel against its plain version on the card at one
+    launch signature, and its time alone."""
     import torch
-    import torch.nn.functional as F
 
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
 
     args, kw = make_inputs(sig, "cuda", seed)
     res_k = kw.get("res_kernel")
     packed = fc.pack_conv3x3(args[3], res_k)
-    got = fc.gn_swish_conv3x3(*args, packed=packed, **kw)
+    got, launch = relaunch(lambda: fc.gn_swish_conv3x3(*args, packed=packed, **kw))
     want = fc.gn_swish_conv3x3_plain(*args, **kw)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -986,46 +728,44 @@ def check_signature(sig, seed):
             ok = bool((d <= TOL_OUT + TOL_OUT * p.float().abs()).all())
         if not ok:
             raise AssertionError(f"{describe(sig)}: kernel vs plain {name} {errs[name]}")
-    del got, want
-
-    # the chunked row's B=12 and B=36 launches take up to 4x as long as
-    # B=9's: fewer repeats keep their rows' share of the run's time
-    reps, calls = (5, 20) if sig[0][0] <= 9 else (2, 5)
-    ms = cuda_ms(lambda: fc.gn_swish_conv3x3(*args, packed=packed, **kw), reps=reps)
-    kernel_ms = graph_ms(bare_launch(fc, args, kw, packed), calls=calls, reps=reps)
-    plain_ms = cuda_ms(lambda: fc.gn_swish_conv3x3_plain(*args, **kw), reps=2)
-    # yardstick only: one cuDNN bf16 conv on the pre-activated input
-    scale, shift = fc.gn_scale_shift(args[0], args[1], args[2], kw.get("x2"),
-                                     kw.get("stats_in"), kw.get("stats_in2"), 32)
-    x_all = args[0] if "x2" not in kw else torch.cat([args[0], kw["x2"]], -1)
-    a = x_all.to(torch.bfloat16).float() * scale[:, None, None, :] + shift[:, None, None, :]
-    a = (a * torch.sigmoid(a)).to(torch.bfloat16).permute(0, 3, 1, 2)
-    w = args[3].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    library_ms = cuda_ms(lambda: F.conv2d(a, w, padding=1), reps=reps)
-    del a, x_all, scale, shift
-    b_ms, b_by = bound(sig)
-    level = f"{sig[0][1]}x{sig[0][2]}" + (" shard" if len(sig) > 10 else "")
-    return {"signature": describe(sig), "level": level,
-            "errors": errs, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "kernel_ms": kernel_ms, "bound_frac": b_ms / ms, "vs_library": ms / library_ms,
-            "kernel_bound_frac": b_ms / kernel_ms}
+    del want
+    return {"signature": describe(sig), "errors": errs, "kernel_ms": kernel_ms(launch)}
 
 
-@contextmanager
-def traced():
-    """A torch.profiler session (CPU and CUDA) around the block, whose
-    device work is synchronised inside it."""
+def check_up2(sig, seed):
+    """The up path's kernel at one recorded f32 signature, through
+    ``up2_conv3x3`` on weights packed once (as ``Upsample`` keeps them):
+    against its plain version and cuDNN's f32 transposed conv, each within
+    TOL_UP2 of sum |x| |w|; its time alone."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        yield prof
-        torch.cuda.synchronize()
+    from hsi_dmgasr_tpu_torch.kernels import up2_conv
+    from hsi_dmgasr_tpu_torch.ops import fused_up
+
+    (b, h, w, c), cout, with_bias, _ = sig
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    kernel = torch.randn((3, 3, c, cout), generator=gen, device="cuda") / math.sqrt(9 * c)
+    bias = torch.randn((cout,), generator=gen, device="cuda") if with_bias else None
+    packed = up2_conv.pack_up2(fused_up.parity_taps(kernel))
+    launched = up2_conv.LAUNCHES_BY_ROUTE["kernel"]
+    got, launch = relaunch(lambda: fused_up.up2_conv3x3(x, kernel, bias, packed=packed))
+    if up2_conv.LAUNCHES_BY_ROUTE["kernel"] != launched + 1:
+        raise AssertionError(f"{UP2} {sig}: the f32 call did not take the kernel")
+    scale = fused_up.up2_conv3x3_transpose(x.abs(), kernel.abs())
+    errs = {}
+    for name, want in (("plain", fused_up.up2_conv3x3_parity(x, kernel, bias)),
+                       ("cudnn_f32", fused_up.up2_conv3x3_transpose(x, kernel, bias))):
+        rel = ((got - want).abs() / scale.clamp_min(1e-30)).max().item()
+        errs[name] = {"max_abs": (got - want).abs().max().item(), "max_rel_sum": rel}
+        if rel > TOL_UP2:
+            raise AssertionError(f"{UP2} {sig}: kernel vs {name} {errs[name]}")
+    del want, scale
+    return {"signature": f"f32 B={b} {h}x{w} {c}->{cout}" + ("" if with_bias else " no bias"),
+            "errors": {"out": errs["cudnn_f32"], **errs}, "kernel_ms": kernel_ms(launch)}
 
 
-def flash_inputs(sig, seed):
+def attention_inputs(sig, seed):
     """Strided q, k, v views of one seeded qkv tensor (f32 or bf16), as the
     UNet makes them, and the scale."""
     import torch
@@ -1037,133 +777,51 @@ def flash_inputs(sig, seed):
     return (*qkv.split(d, dim=-1), 1.0 / math.sqrt(h * d))
 
 
-def flash_times(q, k, v, scale, want, rounds=5):
-    """Mean milliseconds of the flash wrapper, of its C entry's bf16
-    prepass alone (0 at the head dims without one) and of its attention
-    body alone, on the scratch the prepass filled: CUDA events around each
-    call, the three interleaved over ``rounds`` rounds and queued behind one
-    untimed call, so that all three see the card in one state (under
-    sustained load its clock falls: whichever was timed second read 5-10 %
-    slower). The body's output must equal ``want``, the wrapper's, bit for
-    bit."""
-    import torch
-
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-
-    out, scratch = fa.buffers(q)
-    fa.run_phases(q, k, v, scale, out, scratch, 3)
-    out.zero_()
-    calls = {"ms": lambda: fa.flash_attention(q, k, v, scale),
-             "prepass_ms": lambda: fa.run_phases(q, k, v, scale, out, scratch, 1),
-             "attention_kernel_ms": lambda: fa.run_phases(q, k, v, scale, out, scratch, 2)}
-    if scratch is None:
-        del calls["prepass_ms"]
-    calls["ms"]()
-    events = []
-    for _ in range(rounds):
-        for name, fn in calls.items():
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((name, start, end))
-    torch.cuda.synchronize()
-    times = {"ms": 0.0, "prepass_ms": 0.0, "attention_kernel_ms": 0.0}
-    for name, start, end in events:
-        times[name] += start.elapsed_time(end) / rounds
-    if not torch.equal(out, want):
-        raise AssertionError("flash: the attention body alone != the wrapper's output")
-    return times
-
-
 def check_flash(sig, seed):
-    """Flash kernel vs plain version on the card, on strided q, k, v views
-    of one qkv tensor (f32 or bf16) as the UNet makes them, and the four
-    times, the prepass's and the attention body's (flash_times) and the
-    einsum route's time (attention.py's matmul path, in the same
-    dtype). The library yardstick is one scaled_dot_product_attention on
-    bf16 copies."""
+    """The flash kernel against its plain version on the card, on strided
+    q, k, v views as the UNet makes them; the time alone of its C entry and
+    of each phase (the bf16 prepass where its head dim has one, the
+    attention body on the scratch the prepass filled), whose output must be
+    the wrapper's bit for bit."""
     import torch
-    import torch.nn.functional as F
 
-    from hsi_dmgasr_tpu_torch.kernels import attention as attn
     from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
 
     (b, s, h, d), dt = sig
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-    q, k, v, scale = flash_inputs(sig, seed)
+    q, k, v, scale = attention_inputs(sig, seed)
     got = fa.flash_attention(q, k, v, scale)
     want = fa.flash_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
     if got.dtype != dtype or want.dtype != dtype:
         raise AssertionError(f"flash {sig}: output dtypes {got.dtype}, {want.dtype}")
-    timed = flash_times(q, k, v, scale, got)
-    ms, pre_ms, attn_ms = timed["ms"], timed["prepass_ms"], timed["attention_kernel_ms"]
-    got, want = got.float(), want.float()
-    diff = (got - want).abs()
-    err = {"max_abs": diff.max().item(), "max_rel": diff.max().item() / want.abs().max().item()}
-    if not bool((diff <= TOL_FLASH_ABS + TOL_FLASH_REL * want.abs()).all()):
+    diff = (got.float() - want.float()).abs()
+    err = {"max_abs": diff.max().item(), "max_rel": diff.max().item() / want.float().abs().max().item()}
+    if not bool((diff <= TOL_FLASH_ABS + TOL_FLASH_REL * want.float().abs()).all()):
         raise AssertionError(f"flash {sig}: kernel vs plain {err}")
-    del got, want, diff
-
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale), reps=2)
-    einsum_ms = cuda_ms(lambda: attn._einsum_attention(q, k, v, scale), reps=3)
-    qb, kb, vb = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, scale=scale), reps=5)
-    del qb, kb, vb
-    flops = 4 * b * h * s * s * d
-    b_ms, b_by = pick_bound(4 * q.element_size() * b * s * h * d, flops)
-    return {"signature": f"{dt} B={b} S={s} H={h} D={d}", "errors": {"out": err}, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "prepass_ms": pre_ms, "prepass_share": pre_ms / ms, "attention_kernel_ms": attn_ms,
-            "einsum_ms": einsum_ms, "tflops": flops / ms / 1e9}
-
-
-def split_times(q, k, v, scale, rounds=5):
-    """Mean milliseconds of the split kernel's wrapper, of each of its C
-    entry's phases alone (the split, the logits, p . v, each on what the
-    others wrote into one set of buffers) and of the einsum route, CUDA
-    events around each call, interleaved over ``rounds`` rounds after one
-    untimed call of each (see flash_times)."""
-    import torch
-
-    from hsi_dmgasr_tpu_torch.kernels import attention as attn
-    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
-
-    bufs = sa.buffers(q)
-    calls = {"ms": lambda: sa.split_attention(q, k, v, scale),
-             "split_ms": lambda: sa.run_phases(q, k, v, scale, *bufs, 1),
-             "logits_ms": lambda: sa.run_phases(q, k, v, scale, *bufs, 2),
-             "pv_ms": lambda: sa.run_phases(q, k, v, scale, *bufs, 4),
-             "einsum_ms": lambda: attn._einsum_attention(q, k, v, scale)}
-    for fn in calls.values():
-        fn()
-    events = []
-    for _ in range(rounds):
-        for name, fn in calls.items():
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((name, start, end))
-    torch.cuda.synchronize()
-    times = dict.fromkeys(calls, 0.0)
-    for name, start, end in events:
-        times[name] += start.elapsed_time(end) / rounds
-    return times
+    del want, diff
+    out, scratch = fa.buffers(q)
+    phases = {"kernel_ms": 3, "body_ms": 2} if scratch is None else {
+        "kernel_ms": 3, "prepass_ms": 1, "body_ms": 2}
+    times = {name: kernel_ms(lambda p=p: fa.run_phases(q, k, v, scale, out, scratch, p))
+             for name, p in phases.items()}
+    if not torch.equal(out, got):
+        raise AssertionError(f"flash {sig}: the attention body alone != the wrapper's output")
+    return {"signature": f"{dt} B={b} S={s} H={h} D={d}", "errors": {"out": err}, **times}
 
 
 def check_split(sig, seed):
-    """The split attention kernel vs its plain version on the card
-    (TOL_SPLIT), on strided q, k, v views of one f32 qkv tensor as the UNet
-    makes them; its times (split_times), the plain version's, and the
-    einsum route's as the yardstick (the route it replaced)."""
+    """The split attention kernel against its plain version on the card
+    (TOL_SPLIT of ``split_bound``), on strided q, k, v views of one f32 qkv
+    tensor as the UNet makes them; the time alone of its C entry and of
+    each phase (the split, the logits, p . v, each on what the others
+    wrote)."""
     import torch
 
     from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
 
     (b, s, h, d), dt = sig
-    q, k, v, scale = flash_inputs(sig, seed)
+    q, k, v, scale = attention_inputs(sig, seed)
     got = sa.split_attention(q, k, v, scale)
     want = sa.split_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
@@ -1175,24 +833,17 @@ def check_split(sig, seed):
         raise AssertionError(f"split {sig}: kernel vs plain {err}")
     del got, want, diff, bound
     torch.cuda.empty_cache()
-    t = split_times(q, k, v, scale)
-    plain_ms = cuda_ms(lambda: sa.split_attention_plain(q, k, v, scale), reps=2)
-    flops = 4 * b * h * s * s * d
-    b_ms, b_by = pick_bound(4 * q.element_size() * b * s * h * d, flops)
-    return {"signature": f"{dt} B={b} S={s} H={h} D={d}", "errors": {"out": err},
-            "plain_ms": plain_ms, "library_ms": t["einsum_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "tflops": flops / t["ms"] / 1e9, **t}
+    bufs = sa.buffers(q)
+    times = {name: kernel_ms(lambda p=p: sa.run_phases(q, k, v, scale, *bufs, p))
+             for name, p in (("kernel_ms", 7), ("split_ms", 1), ("logits_ms", 2), ("pv_ms", 4))}
+    return {"signature": f"{dt} B={b} S={s} H={h} D={d}", "errors": {"out": err}, **times}
 
 
 def check_dot(case, dt, seed):
-    """Blocked dot vs its plain version on the card at one probe case
-    (int8 bit for bit), a 3-link chain captured in a CUDA graph vs the
-    same links run eagerly (bit for bit), the four times per dot, and the
-    kernel's share of its bound, TOP/s and ratio to the library call. The
-    library yardstick is torch._int_mm (int8) or torch.mm with an f32
-    output (bf16). graph_ms replays 20 calls on the same operands, which
-    then sit in the L2: the HBM byte bound is a yardstick there, not a
-    ceiling."""
+    """The blocked dot against its plain version on the card at one probe
+    case (int8 bit for bit), a 3-link chain captured in a CUDA graph
+    against the same links run eagerly (bit for bit), and its time alone
+    (the operands stay in the L2 between the graph's launches)."""
     import torch
 
     from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
@@ -1206,7 +857,7 @@ def check_dot(case, dt, seed):
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
     wp = bd.pack_dot_weight(w)
-    got = bd.blocked_dot(x, wp, bm, bn)
+    got, launch = relaunch(lambda: bd.blocked_dot(x, wp, bm, bn))
     want = bd.blocked_dot_plain(x, w)
     torch.cuda.synchronize()
     diff = (got.double() - want.double()).abs()
@@ -1218,7 +869,7 @@ def check_dot(case, dt, seed):
         ok = bool((diff <= TOL_DOT_ABS + TOL_DOT_REL * want.double().abs()).all())
     if not ok:
         raise AssertionError(f"blocked dot {name} {dt}: kernel vs plain {err}")
-    del got, want, diff
+    del want, diff
 
     dot = mb.kernel_dot(w, bm, bn)
     eager = mb.run_chain(dot, x, 3)
@@ -1229,18 +880,8 @@ def check_dot(case, dt, seed):
     if not torch.equal(out, eager):
         raise AssertionError(f"blocked dot {name} {dt}: captured 3-link chain != eager chain")
     del graph, out, eager
-
-    ms = graph_ms(lambda: bd.blocked_dot(x, wp, bm, bn))
-    plain_ms = graph_ms(lambda: bd.blocked_dot_plain(x, w))
-    if dt == "int8":
-        library_ms = graph_ms(lambda: torch._int_mm(x, w))
-    else:
-        library_ms = graph_ms(lambda: torch.mm(x, w, out_dtype=torch.float32))
-    b_s, b_by = mb.dot_bound(m, k, n, dt)
-    return {"signature": f"{name} {dt} {m}x{k}x{n}", "case": name, "dtype": dt,
-            "errors": {"out": err}, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_s * 1e3, "bound_by": b_by, "bound_frac": b_s * 1e3 / ms,
-            "tops": 2 * m * k * n / ms / 1e9, "vs_library": ms / library_ms}
+    return {"signature": f"{name} {dt} {m}x{k}x{n}", "errors": {"out": err},
+            "kernel_ms": kernel_ms(launch)}
 
 
 # ------------------------------------------------------------- the slice
@@ -1289,218 +930,101 @@ def golden_check():
     return err
 
 
-def union_ms(spans):
-    """Milliseconds covered by the union of (start, end) intervals in
-    microseconds: the time the device ran anything, each moment once."""
-    busy, end = 0.0, -math.inf
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
-
-
-def profile_cube(run_cube, stages):
-    """One traced cube (``run_cube()``): device time by kernel name, the
-    device's busy time (the union of its kernel, copy and memset intervals)
-    and idle share; then the host-clock seconds of each stage, each a
-    function of the previous stage's result that ends in a synchronize."""
-    import torch
-    from torch.autograd import DeviceType
-
-    with traced() as prof:
-        t0 = time.perf_counter()
-        run_cube()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-            spans.append((e.time_range.start, e.time_range.end))
-    busy_ms = union_ms(spans)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-
-    seconds, state = {}, None
-    for name, fn in stages:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = fn(state)
-        torch.cuda.synchronize()
-        seconds[name + "_s"] = time.perf_counter() - t0
-    del state
-    # the port's kernels the trace saw, beside the launches counted (a
-    # trace may miss events: see flash_times)
-    seen = {FUSED: sum(n for k, (_, n) in by_name.items() if "gn_swish_conv3x3" in k),
-            FLASH: sum(n for k, (_, n) in by_name.items() if "flash_" in k)}
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_events": seen,
-            "idle_share": 1.0 - busy_ms / wall_ms, "stages": seconds,
-            "kernels": [{"name": k[:120], "ms": ms, "calls": n} for k, (ms, n) in top]}
-
-
-def run_path(name, config, diffusion, expected, cube, profile):
-    """Record, count, check and time one main path (its config's
-    model.diffusion updated by ``diffusion``). Returns its report and the
-    launch signatures it recorded. A DDIM path also runs one chain twice
-    from the same x_init, with the kernels and on their plain versions."""
+def check_cube(name, out, shape):
     import torch
 
-    pipe = build_pipeline(config, diffusion)
-    # the counted main-path run, which also records the launch signatures
-    out, _, peak_gib, launches, fused_calls, flash_calls, up2_calls = counted_run(
-        name, expected,
-        lambda: pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(2)))
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[{name}] cube {tuple(out.shape)} or non-finite values")
+    lo, hi = out.min().item(), out.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"[{name}] cube outside [0, 1]: [{lo}, {hi}]")
+
+
+def run_path(name, cube):
+    """One main path: its counted cube, checked; a DDIM path's chain from a
+    seeded x_init with the kernels against the same chain on their plain
+    versions; one full-width UNet forward with the kernels against their
+    plain versions. Returns its report and recorded calls."""
+    import torch
+
+    pipe = build_pipeline(FORWARDS[name][0], DIFFUSION[name])
+    out, calls, launches = counted_run(
+        name, lambda: pipe.super_resolve(cube, generator=torch.Generator(
+            device="cuda").manual_seed(2)))
     check_cube(name, out, CUBE)
     del out
-    times = []
-    for r in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(3 + r))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    report = {"config": config, "diffusion": diffusion, "cube_seconds": statistics.median(times),
-              "cube_times": times, "peak_memory_gib": peak_gib, "launches": launches}
-    log(f"[{name}] cube seconds (median of 3): {report['cube_seconds']:.4f} {times}")
-    if diffusion.get("sampler") == "ddim":
-        report["chain_err"] = check_chain(name, pipe, cube)
-
-    # full-width UNet forward, kernels vs plain versions, on the module the
-    # cubes sampled
-    unet = pipe.ddpm.eval_unet
+    report = {"config": FORWARDS[name][0], "diffusion": DIFFUSION[name], "launches": launches}
     gen = torch.Generator(device="cuda").manual_seed(4)
     with torch.inference_mode():
         cond = pipe._fold(pipe.encode(cube))
+        if DIFFUSION[name].get("sampler") == "ddim":
+            x_init = torch.randn(cond.shape, generator=torch.Generator(
+                device="cuda").manual_seed(8), device="cuda")
+            got = pipe.ddpm.super_resolution(cond, x_init=x_init)
+            with plain_kernels():
+                want = pipe.ddpm.super_resolution(cond, x_init=x_init)
+            report["chain_err"] = divergence(got, want)
+            log(f"[{name}] one chain (B=9, 512^2) from the same x_init, kernels vs plain: "
+                f"{report['chain_err']}")
+            if not within(got, want, TOL_UNET):
+                raise AssertionError(f"[{name}] chain with the kernels vs plain: "
+                                     f"{report['chain_err']}")
+            del got, want
         x = torch.cat([cond, torch.randn(cond.shape, generator=gen, device="cuda")], -1)
         t = torch.full((x.shape[0], 1), 0.5, device="cuda")
-        unet_err = check_unet(name, unet, x, t)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        unet(x, t)
-        torch.cuda.synchronize()
-        fwd_s = time.perf_counter() - t0
-    del x, cond
-    log(f"[{name}] full-width UNet forward (B=9, 512^2): kernels vs plain {unet_err}, "
-        f"forward {fwd_s:.4f} s")
-    report.update(unet_forward_err=unet_err, unet_forward_s=fwd_s)
-
-    if profile:
-        gen = torch.Generator(device="cuda").manual_seed(9)
-        b = cube.shape[0]
-        report["profile"] = profile_cube(
-            lambda: pipe.super_resolve(cube, generator=gen),
-            (("encode", lambda _: pipe._fold(pipe.encode(cube))),
-             ("chain", lambda z: pipe.ddpm.super_resolution(z, generator=gen)),
-             ("decode", lambda z: pipe.decode(pipe._unfold(z, b)))))
-        log_profile(name, report["profile"])
-    del pipe
+        report["unet_forward_err"] = check_unet(name, pipe.ddpm.eval_unet, x, t)
+    log(f"[{name}] full-width UNet forward (B=9, 512^2): kernels vs plain "
+        f"{report['unet_forward_err']}")
+    del pipe, x, cond
     torch.cuda.empty_cache()
-    return report, fused_calls, flash_calls, up2_calls
+    return report, calls
 
 
-def check_chain(name, pipe, cube):
-    """One reverse chain of the path's sampler on the card from a seeded
-    x_init, with the kernels and again on their plain versions: elementwise
-    within TOL_UNET."""
-    import torch
-
-    with torch.inference_mode():
-        cond = pipe._fold(pipe.encode(cube))
-        x_init = torch.randn(cond.shape, generator=torch.Generator(device="cuda").manual_seed(8),
-                             device="cuda")
-        got = pipe.ddpm.super_resolution(cond, x_init=x_init)
-        with plain_kernels():
-            want = pipe.ddpm.super_resolution(cond, x_init=x_init)
-    err = divergence(got, want)
-    log(f"[{name}] one chain (B=9, 512^2) from the same x_init, kernels vs plain: {err}")
-    if not within(got, want, TOL_UNET):
-        raise AssertionError(f"[{name}] chain with the kernels vs plain: {err}")
-    return err
-
-
-def spatial_rank(rank, device, weights, timed_seed):
+def spatial_rank(rank, device, weights):
     """One rank of pavia_x4_spatial: the pavia_x4 pipeline on the weights
-    the parent saved, the launch counts set to 0, one cube through
-    super_resolve_spatial replaying the pavia_x4 cube's draws while its
-    launch signatures are recorded (and the gathered latent caught at the
-    decode), its exact counts, then one more cube from ``timed_seed``, timed.
-    Returns the counts, signatures, bytes gathered, peak memory, times,
-    latent and cube."""
+    the parent saved, one counted cube through super_resolve_spatial
+    replaying the pavia_x4 cube's draws (the gathered latent caught at the
+    decode). Returns its launches, calls, bytes gathered, latent and cube."""
     import torch
 
     from hsi_dmgasr_tpu_torch.device import use_f32_policy
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
     from hsi_dmgasr_tpu_torch.parallel import dmgasr_mesh
 
     use_f32_policy()
     mesh = dmgasr_mesh(*SPATIAL_MESH)
     torch.cuda.set_device(mesh.device)
-    config, diffusion, _ = PATHS["pavia_x4"]
-    pipe = build_pipeline(config, diffusion)
+    pipe = build_pipeline(FORWARDS[SPATIAL][0], {})
     state = torch.load(weights, map_location=mesh.device)
     pipe.gae.load_state_dict(state["gae"])
     pipe.ddpm.eval_unet.load_state_dict(state["unet"])
     cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0),
                       device="cuda")
-
-    def sharded_cube(seed):
-        return pipe.super_resolve_spatial(
-            cube, mesh, generator=torch.Generator(device="cuda").manual_seed(seed),
-            replay_noise=True)
-
-    fused_calls, flash_calls, up2_calls = {}, {}, {}
-    fc.LAUNCHES = 0
-    fa.LAUNCHES = 0
-    bd.LAUNCHES = 0
-    zero_up2()
-    zero_attention()
     mesh.gathered.clear()
-    torch.cuda.reset_peak_memory_stats()
-    with recording(fused_calls, flash_calls, up2_calls), \
-            mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
-        out = sharded_cube(SPATIAL_SEED)
-    torch.cuda.synchronize()
-    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
-    gathered = dict(mesh.gathered)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    if launches != SPATIAL_PER_RANK or bd.LAUNCHES:
-        raise AssertionError(f"[{SPATIAL}] rank {rank}: {launches}, {bd.LAUNCHES} blocked-dot "
-                             f"launches per cube, expected {SPATIAL_PER_RANK} and none")
-    # an H-shard's up path is up2_conv3x3_spatial's transposed conv, not the router
-    launches[UP2] = up2_launches(f"{SPATIAL}:rank{rank}", 0, up2_calls)
-    routes, split_calls = attention_routes(f"{SPATIAL}:rank{rank}", SPLIT_PER_RANK[SPATIAL])
-    launches[SPLIT] = routes["split"]
+    with mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
+        out, calls, launches = counted_run(
+            f"{SPATIAL}:rank{rank}", lambda: pipe.super_resolve_spatial(
+                cube, mesh, generator=torch.Generator(device="cuda").manual_seed(SPATIAL_SEED),
+                replay_noise=True), SPATIAL)
     check_cube(SPATIAL, out, CUBE)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sharded_cube(timed_seed)
-    torch.cuda.synchronize()
-    return {"launches": launches, "fused_calls": fused_calls, "flash_calls": flash_calls,
-            "up2_calls": up2_calls, "split_calls": split_calls,
-            "gathered_bytes": gathered, "peak_memory_gib": peak_gib,
-            "cube_seconds": time.perf_counter() - t0,
+    return {"launches": launches, "calls": calls, "gathered_bytes": dict(mesh.gathered),
             "latent": decode.call_args[0][0].cpu(), "cube": out.cpu()}
 
 
 def run_spatial():
-    """pavia_x4_spatial, in the parent: the pavia_x4 pipeline's single-device
-    cube twice from the same draws (the latent caught at the decode: the
-    reference, and the spread two single-device chains show), its weights
-    saved for the ranks; then the two ranks (multihost.launch, a file://
-    store), each checked for its counts and cube; the ranks' cubes equal;
-    the sharded latent against the single-device one within TOL_UNET.
-    Returns its report and its ranks' launch signatures, summed."""
+    """pavia_x4_spatial, in the parent: the pavia_x4 pipeline's
+    single-device cube twice from the same draws (the latent caught at the
+    decode: the reference, and the spread two single-device chains show),
+    its weights saved for the ranks; then the two ranks (multihost.launch,
+    a file:// store), each checked for its counts and cube; the ranks'
+    latents equal and their cubes within SPATIAL_RANK_TOL; the sharded
+    latent against the single-device one within TOL_UNET."""
     import tempfile
 
     import torch
 
     from hsi_dmgasr_tpu_torch.parallel import multihost
 
-    config, diffusion, _ = PATHS["pavia_x4"]
-    pipe = build_pipeline(config, diffusion)
+    pipe = build_pipeline(FORWARDS[SPATIAL][0], {})
     cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0),
                       device="cuda")
     single = []
@@ -1522,12 +1046,10 @@ def run_spatial():
     del pipe, cube
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
     store = tempfile.mkdtemp(prefix="store-", dir=work)
     ranks = multihost.launch(spatial_rank, SPATIAL_MESH[0] * SPATIAL_MESH[1],
-                             f"file://{store}/rendezvous", args=(weights, SPATIAL_TIMED_SEED))
+                             f"file://{store}/rendezvous", args=(weights,))
     shutil.rmtree(store, ignore_errors=True)
-    secs = time.perf_counter() - t0
     latents_equal = all(torch.equal(r["latent"], ranks[0]["latent"]) for r in ranks)
     cube_diff = max((r["cube"] - ranks[0]["cube"]).abs().max().item() for r in ranks)
     log(f"[{SPATIAL}] the ranks' gathered latents equal: {latents_equal}; their decoded cubes "
@@ -1538,155 +1060,20 @@ def run_spatial():
                              f"{latents_equal}, cubes {cube_diff:.3e} apart")
     err = divergence(ranks[0]["latent"], single[0])
     meets_jax = within(ranks[0]["latent"], single[0], SPATIAL_JAX_TOL)
-    log(f"[{SPATIAL}] mesh {SPATIAL_MESH} ({TWO_RANKS}): sharded latent chain vs single-device "
-        f"{err}; within the JAX package's {SPATIAL_JAX_TOL} (not gated): {meets_jax}; two "
-        f"single-device chains from the same draws differ by {spread}")
+    log(f"[{SPATIAL}] mesh {SPATIAL_MESH}: sharded latent chain vs single-device {err}; within "
+        f"the JAX package's {SPATIAL_JAX_TOL} (not gated): {meets_jax}; two single-device "
+        f"chains from the same draws differ by {spread}")
     if not within(ranks[0]["latent"], single[0], TOL_UNET):
         raise AssertionError(f"[{SPATIAL}] sharded chain vs single-device: {err}")
-    fused_calls, flash_calls, up2_calls = {}, {}, {}
-    for r in ranks:
-        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"]),
-                            (up2_calls, r["up2_calls"])):
-            for sig, n in calls.items():
-                mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2, SPLIT)}
-    SPLIT_SIGS[SPATIAL] = merged_split(ranks)
-    times = [r["cube_seconds"] for r in ranks]
-    report = {"mesh": SPATIAL_MESH, "note": TWO_RANKS, "launches": launches,
+    report = {"mesh": SPATIAL_MESH,
+              "launches": {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]},
               "launches_per_rank": [r["launches"] for r in ranks],
-              "cube_seconds": times[0], "cube_seconds_per_rank": times,
-              "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
               "gathered_bytes_per_cube": [r["gathered_bytes"] for r in ranks],
               "sharded_vs_single": err, "within_jax_tol": meets_jax,
-              "single_device_spread": spread, "ranks_seconds": secs,
-              "ranks_cube_max_diff": cube_diff, "decode_repeat_max_diff": decode_repeat}
-    log(f"[{SPATIAL}] ({TWO_RANKS}) cube seconds (rank 0; per rank): "
-        f"{report['cube_seconds']:.4f} {times}; peak memory per rank "
-        f"{[round(g, 2) for g in report['peak_memory_gib']]} GiB; bytes gathered per cube by "
-        f"rank {report['gathered_bytes_per_cube']}; launches per rank "
-        f"{report['launches_per_rank']}; the ranks took {secs:.1f} s in all")
-    return report, fused_calls, flash_calls, up2_calls
-
-
-def zero_up2():
-    """The up path's route counts to 0."""
-    from hsi_dmgasr_tpu_torch.kernels import up2_conv
-
-    for route in up2_conv.LAUNCHES_BY_ROUTE:
-        up2_conv.LAUNCHES_BY_ROUTE[route] = 0
-
-
-def up2_launches(name, forwards, up2_calls):
-    """The up path in a run of ``forwards`` fused UNet forwards, its counts
-    set to 0 (``zero_up2``) before it: UPS_PER_FORWARD recorded calls a
-    forward, and the router counted each f32 call on the kernel and each
-    other on the transposed conv. Returns the kernel's launches."""
-    from hsi_dmgasr_tpu_torch.kernels import up2_conv
-
-    routes = dict(up2_conv.LAUNCHES_BY_ROUTE)
-    calls = sum(up2_calls.values())
-    f32 = sum(n for sig, n in up2_calls.items() if sig[-1] == "f32")
-    if calls != UPS_PER_FORWARD * forwards or routes != {"kernel": f32, "transpose": calls - f32}:
-        raise AssertionError(f"[{name}] up path: routes {routes}, {calls} calls recorded ({f32} "
-                             f"f32), expected {UPS_PER_FORWARD} a UNet forward x {forwards}, "
-                             "each f32 call on the kernel")
-    return routes["kernel"]
-
-
-def zero_attention():
-    """The attention router's counts, the split kernel's launches and the
-    recorded attention calls to 0."""
-    from hsi_dmgasr_tpu_torch.kernels import attention
-    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
-
-    attention.LAUNCHES_BY_ROUTE.update(dict.fromkeys(attention.LAUNCHES_BY_ROUTE, 0))
-    sa.LAUNCHES = 0
-    _ATTN_CALLS.clear()
-
-
-def attention_routes(name, expected_split=None):
-    """The attention calls since ``zero_attention``: the router's counts
-    held to the route ``attention.route`` gives each call ``recording``
-    recorded (so every CUDA f32 call below the flash gate that records no
-    graph, at a shape the split kernel takes, launched it), the split
-    kernel's launches to its route's count and, where given, to
-    ``expected_split``. Returns the routes and the split kernel's
-    signatures {(shape, dtype name): calls}."""
-    from hsi_dmgasr_tpu_torch.kernels import attention
-    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
-
-    want, split = dict.fromkeys(attention.LAUNCHES_BY_ROUTE, 0), {}
-    for (shape, dtype, grad, cuda), n in _ATTN_CALLS.items():
-        route = attention.route(dtype, cuda, shape[1], shape[3], grad, shape[0] * shape[2])
-        want[route] += n
-        if route == "split":
-            sig = (shape, dtype_name(dtype))
-            split[sig] = split.get(sig, 0) + n
-    routes = dict(attention.LAUNCHES_BY_ROUTE)
-    log(f"[{name}] attention routes {routes}, split kernel launches {sa.LAUNCHES}")
-    if (routes != want or sa.LAUNCHES != routes["split"]
-            or (expected_split is not None and routes["split"] != expected_split)):
-        raise AssertionError(f"[{name}] attention routes {routes} ({sa.LAUNCHES} split launches), "
-                             f"the recorded calls' routes {want}, expected {expected_split} "
-                             "split launches")
-    return routes, split
-
-
-def merged_split(ranks):
-    """The split kernel's signatures summed over ranks' reports."""
-    mine = {}
-    for r in ranks:
-        for sig, n in r["split_calls"].items():
-            mine[sig] = mine.get(sig, 0) + n
-    return mine
-
-
-def counted_run(name, expected, run):
-    """One main-path run: the launch counts set to 0 and the peak memory
-    reset just before ``run()``, its launch signatures recorded, the exact
-    counts (recorded and counted) read just after. Returns its output,
-    seconds, peak memory, launches and signatures (fused, flash, up path)."""
-    import torch
-
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
-
-    fused_calls, flash_calls, up2_calls = {}, {}, {}
-    fc.LAUNCHES = 0
-    fa.LAUNCHES = 0
-    bd.LAUNCHES = 0
-    fc.LAUNCHES_BY_ROUTE = dict.fromkeys(fc.LAUNCHES_BY_ROUTE, 0)
-    zero_up2()
-    zero_attention()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with recording(fused_calls, flash_calls, up2_calls):
-        out = run()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
-    recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
-    routes = dict(fc.LAUNCHES_BY_ROUTE)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[{name}] main path: {launches} kernel launches ({len(fused_calls)} fused signatures, "
-        f"routes {routes}), {secs:.4f} s, peak memory {peak_gib:.2f} GiB")
-    if launches != expected or recorded != expected or bd.LAUNCHES:
-        raise AssertionError(f"[{name}] {launches} launches ({recorded} recorded), "
-                             f"{bd.LAUNCHES} blocked-dot launches, expected {expected}")
-    # one thin launch (the final conv, Cout = 3) per UNet forward, the rest wgmma
-    n_fused = expected[FUSED]
-    if routes != {"thin": n_fused // BLOCKS_PER_FORWARD,
-                  "wgmma": n_fused - n_fused // BLOCKS_PER_FORWARD}:
-        raise AssertionError(f"[{name}] fused routes {routes}: expected one thin launch per "
-                             f"{BLOCKS_PER_FORWARD} fused launches")
-    launches[UP2] = up2_launches(name, n_fused // BLOCKS_PER_FORWARD, up2_calls)
-    log(f"[{name}] up path: {launches[UP2]} kernel launches, {len(up2_calls)} signatures")
-    routes, SPLIT_SIGS[name] = attention_routes(
-        name, SPLIT_PER_RUN.get(name, SPLIT_PER_RANK.get(name.split(":rank")[0])))
-    launches[SPLIT] = routes["split"]
-    return out, secs, peak_gib, launches, fused_calls, flash_calls, up2_calls
+              "single_device_spread": spread, "ranks_cube_max_diff": cube_diff,
+              "decode_repeat_max_diff": decode_repeat}
+    log(f"[{SPATIAL}] bytes gathered per cube by rank {report['gathered_bytes_per_cube']}")
+    return report, merged([r["calls"] for r in ranks])
 
 
 @contextmanager
@@ -1706,14 +1093,11 @@ def run_chunked():
     """pavia_x4_r3_chunked: the r3 pipeline with latent_chunk 12 on 4 seeded
     cubes, from draws made once (x_init by init_from_cond, the noise of each
     step), then the same batch unchunked from the same draws. Each a counted
-    run (660 and 220 fused launches), its cubes checked, its peak memory
-    read; the two latents and cubes within TOL_UNET (the difference
-    printed); then each timed once more, chunked first. Returns both rows'
-    reports and signatures."""
+    run, its cubes checked; the two latents and cubes within TOL_UNET.
+    Returns both rows' reports and calls."""
     import torch
 
-    config, diffusion, _ = PATHS[R3]
-    pipe = build_pipeline(config, {**diffusion, "latent_chunk": CHUNK})
+    pipe = build_pipeline(FORWARDS[R3][0], {**DIFFUSION[R3], "latent_chunk": CHUNK})
     cubes = torch.rand((CHUNK_CUBES, *CUBE[1:]),
                        generator=torch.Generator(device="cuda").manual_seed(10), device="cuda")
     with torch.inference_mode():
@@ -1727,66 +1111,34 @@ def run_chunked():
     for name, chunk in ((CHUNKED, CHUNK), (CHUNKED_WHOLE, None)):
         with latent_chunk(pipe, chunk), \
                 mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
-            out, secs, peak, launches, fused_calls, flash_calls, up2_calls = counted_run(
-                name, CHUNK_PATHS[name],
-                lambda: pipe.super_resolve(cubes, x_init=x_init, noise_seq=noise))
+            out, calls, launches = counted_run(
+                name, lambda: pipe.super_resolve(cubes, x_init=x_init, noise_seq=noise))
         check_cube(name, out, cubes.shape)
         outs[name] = (decode.call_args[0][0], out)
-        runs[name] = ({"config": config, "latent_chunk": chunk, "cubes": CHUNK_CUBES,
-                       "counted_run_seconds": secs, "peak_memory_gib": peak,
-                       "launches": launches}, fused_calls, flash_calls, up2_calls)
+        runs[name] = ({"latent_chunk": chunk, "cubes": CHUNK_CUBES, "launches": launches}, calls)
     err = {what: divergence(outs[CHUNKED][i], outs[CHUNKED_WHOLE][i])
            for i, what in enumerate(("latent", "cube"))}
     log(f"[{CHUNKED}] chunked ({CHUNK_CUBES * GAE_CFG['G']} latents in chains of {CHUNK}) vs "
         f"unchunked, from the same draws: {err}")
     if not all(within(outs[CHUNKED][i], outs[CHUNKED_WHOLE][i], TOL_UNET) for i in (0, 1)):
         raise AssertionError(f"[{CHUNKED}] chunked vs unchunked: {err}")
-    del outs
-    for name, chunk in ((CHUNKED, CHUNK), (CHUNKED_WHOLE, None)):
-        with latent_chunk(pipe, chunk):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pipe.super_resolve(cubes, x_init=x_init, noise_seq=noise)
-            torch.cuda.synchronize()
-        report = runs[name][0]
-        report["seconds"] = time.perf_counter() - t0
-        report["cube_seconds"] = report["seconds"] / CHUNK_CUBES
-        log(f"[{name}] {report['cube_seconds']:.4f} s per cube ({CHUNK_CUBES} cubes in "
-            f"{report['seconds']:.4f} s; the counted run {report['counted_run_seconds']:.4f} s), "
-            f"peak memory {report['peak_memory_gib']:.2f} GiB")
     runs[CHUNKED][0]["chunked_vs_unchunked"] = err
-    # latent_chunk chunks the chain only (as the JAX package's does): the
-    # GAE encodes and decodes all 36 group images at once. Each stage's
-    # peak above the memory held before it
-    gae_gib = {}
-    for stage, fn in (("encode", lambda: pipe.encode(cubes)),
-                      ("decode", lambda: pipe.decode(pipe._unfold(x_init, CHUNK_CUBES)))):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        fn()
-        torch.cuda.synchronize()
-        gae_gib[stage] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-    runs[CHUNKED][0]["gae_stage_peak_gib"] = gae_gib
-    log(f"[{CHUNKED}] the GAE on {CHUNK_CUBES} cubes, peak above what is held: {gae_gib} GiB "
-        f"(held before them: {held / 2 ** 30:.2f} GiB)")
-    del pipe, cubes, x_init, noise
+    del pipe, cubes, x_init, noise, outs
     torch.cuda.empty_cache()
     return runs
 
 
 def run_tiled():
     """pavia_x4_tiled: one seeded SR cube of SCENE through the r3 pipeline's
-    super_resolve_tiled(TILE, OVERLAP), a counted run (1320 fused launches),
-    every tile's output kept; the scene's shape, finite, in [0, 1]; the last
-    tile against super_resolve of the same patch drawing from the same
-    generator (the tile's own of split_generator), within TOL_UNET."""
+    super_resolve_tiled(TILE, OVERLAP), a counted run, every tile's output
+    kept; the scene's shape, finite, in [0, 1]; the last tile against
+    super_resolve of the same patch drawing from the same generator (the
+    tile's own of split_generator), within TOL_UNET."""
     import torch
 
     from hsi_dmgasr_tpu_torch.diffusion import split_generator
 
-    config, diffusion, _ = PATHS[R3]
-    pipe = build_pipeline(config, diffusion)
+    pipe = build_pipeline(FORWARDS[TILED][0], DIFFUSION[R3])
     scene = torch.rand(SCENE, generator=torch.Generator(device="cuda").manual_seed(12),
                        device="cuda")
     tiles, real = [], pipe.super_resolve
@@ -1796,10 +1148,9 @@ def run_tiled():
         return tiles[-1]
 
     with mock.patch.object(pipe, "super_resolve", keep):
-        out, secs, peak, launches, fused_calls, flash_calls, up2_calls = counted_run(
-            TILED, TILED_PER_SCENE, lambda: pipe.super_resolve_tiled(
-                scene, tile=TILE, overlap=OVERLAP,
-                generator=torch.Generator(device="cuda").manual_seed(13)))
+        out, calls, launches = counted_run(TILED, lambda: pipe.super_resolve_tiled(
+            scene, tile=TILE, overlap=OVERLAP,
+            generator=torch.Generator(device="cuda").manual_seed(13)))
     check_cube(TILED, out[None], (1, *SCENE))
     if len(tiles) != len(TILE_ORIGINS):
         raise AssertionError(f"[{TILED}] {len(tiles)} tiles, expected {len(TILE_ORIGINS)}")
@@ -1808,125 +1159,24 @@ def run_tiled():
     gen = split_generator(torch.Generator(device="cuda").manual_seed(13), len(TILE_ORIGINS))[k]
     want = pipe.super_resolve(scene[None, y0:y0 + TILE, x0:x0 + TILE], generator=gen)
     err = divergence(tiles[k], want)
-    log(f"[{TILED}] {len(tiles)} tiles of {TILE}^2 (overlap {OVERLAP}) over {SCENE}: "
-        f"{secs:.4f} s per scene, peak memory {peak:.2f} GiB; tile {k} at ({y0}, {x0}) vs "
-        f"super_resolve of its patch from the same generator: {err}")
+    log(f"[{TILED}] {len(tiles)} tiles of {TILE}^2 (overlap {OVERLAP}) over {SCENE}: tile {k} "
+        f"at ({y0}, {x0}) vs super_resolve of its patch from the same generator: {err}")
     if not within(tiles[k], want, TOL_UNET):
         raise AssertionError(f"[{TILED}] tile {k} vs super_resolve: {err}")
-    report = {"config": config, "scene": SCENE, "tile": TILE, "overlap": OVERLAP,
-              "tiles": len(tiles), "scene_seconds": secs, "peak_memory_gib": peak,
+    report = {"scene": SCENE, "tile": TILE, "overlap": OVERLAP, "tiles": len(tiles),
               "launches": launches, "tile_vs_super_resolve": err}
     del pipe, scene, out, tiles, want
     torch.cuda.empty_cache()
-    return report, fused_calls, flash_calls, up2_calls
+    return report, calls
 
 
-def run_train_remat(dirs, gae_ckpt, train_report):
-    """train_r3_remat: train_r3's configuration with model.unet.remat off and
-    on, each a fresh stage-2 pipeline from seed 0 on the GAE train_gae saved:
-    the counts set to 0, one step's loss and gradients from the same HR
-    crops and the same dropout generator, then REMAT_STEPS steps through
-    train_step_from_hr (median after 2 warm-up) and their peak memory. The
-    remat step's loss and every gradient within atol 1e-4, rtol 1e-3 of
-    the plain step's; no kernel launched."""
-    import torch
-
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
-    from hsi_dmgasr_tpu_torch.train import stage2_driver as drv
-
-    opt = train_config(os.path.join(ROOT, "build", REMAT), dirs, gae_ckpt)
-    size = opt["datasets"]["train"]["l_resolution"] * opt["scale"]
-    hr = torch.rand((opt["datasets"]["train"]["batch_size"], size, size, GAE_CFG["n_colors"]),
-                    generator=torch.Generator(device="cuda").manual_seed(14), device="cuda")
-    steps = {}
-    fc.LAUNCHES = 0
-    fa.LAUNCHES = 0
-    bd.LAUNCHES = 0
-    for remat in (False, True):
-        opt["model"]["unet"]["remat"] = remat
-        pipe = drv.build_pipeline(opt, seed=0)
-        with torch.no_grad():
-            sr = pipe._degrade_fn((size, size), opt["scale"])(hr)
-            batch = {"HR": pipe._fold(pipe._encode(hr)), "SR": pipe._fold(pipe._encode(sr))}
-        dropout = torch.Generator(device="cuda").manual_seed(15)
-        loss = pipe.ddpm.compute_grads(batch, generator=dropout)
-        grads = {n: p.grad.detach().clone() for n, p in pipe.ddpm.unet.named_parameters()}
-        del batch, sr
-        pipe.ddpm.optimizer.zero_grad(set_to_none=True)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(REMAT_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pipe.train_step_from_hr(hr, scale=opt["scale"])
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        steps[remat] = {"loss": float(loss), "grads": grads, "step_seconds":
-                        statistics.median(times[2:]), "step_times": times,
-                        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        del pipe
-        torch.cuda.empty_cache()
-    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
-    if any(launches.values()):
-        raise AssertionError(f"[{REMAT}] the train steps launched {launches}, expected none")
-    plain, remat = steps[False], steps[True]
-    worst, leaves = 0.0, 0
-    for n, g in plain["grads"].items():
-        d = (remat["grads"][n] - g).abs()
-        worst = max(worst, d.max().item())
-        leaves += not bool((d <= TOL_REMAT_ABS + TOL_REMAT_REL * g.abs()).all())
-    loss_err = abs(remat["loss"] - plain["loss"])
-    report = {"remat_vs_plain": {"loss_plain": plain["loss"], "loss_remat": remat["loss"],
-                                 "loss_abs_err": loss_err, "grad_max_abs_err": worst,
-                                 "grad_leaves_outside": leaves,
-                                 "grad_max_abs": max(g.abs().max().item()
-                                                     for g in plain["grads"].values())},
-              "launches": launches}
-    for key, st in (("plain", plain), ("remat", remat)):
-        report[key] = {k: st[k] for k in ("step_seconds", "step_times", "peak_memory_gib")}
-    report["slowdown"] = remat["step_seconds"] / plain["step_seconds"]
-    log(f"[{REMAT}] remat vs plain step (same weights, crops, dropout generator): "
-        f"{report['remat_vs_plain']}")
-    if leaves or loss_err > TOL_REMAT_ABS + TOL_REMAT_REL * abs(plain["loss"]):
-        raise AssertionError(f"[{REMAT}] remat step vs plain step: {report['remat_vs_plain']}")
-    log(f"[{REMAT}] ms per step (median of {REMAT_STEPS - 2} after 2 warm-up): plain "
-        f"{plain['step_seconds'] * 1e3:.2f}, remat {remat['step_seconds'] * 1e3:.2f} "
-        f"({report['slowdown']:.3f}x); peak memory plain {plain['peak_memory_gib']:.2f} GiB, "
-        f"remat {remat['peak_memory_gib']:.2f} GiB ({TRAIN}'s driver steps: "
-        f"{train_report['peak_memory_gib']:.2f} GiB)")
-    return report
-
-
-def log_profile(name, prof):
-    log(f"[{name}] profile: wall {prof['wall_ms']:.1f} ms, device busy "
-        f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.4f}, "
-        f"port kernel events {prof['kernel_events']}, stages {prof['stages']}")
-    for k in prof["kernels"][:12]:
-        log(f"  {k['ms']:9.3f} ms  x{k['calls']:<5} {k['name'][:90]}")
-
-
-def check_cube(name, out, shape):
-    import torch
-
-    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"[{name}] cube {tuple(out.shape)} or non-finite values")
-    lo, hi = out.min().item(), out.max().item()
-    if lo < 0.0 or hi > 1.0:
-        raise AssertionError(f"[{name}] cube outside [0, 1]: [{lo}, {hi}]")
-
-
-def run_bench(profile):
-    """The bf16 flagship path: the port's bench (hsi_dmgasr_tpu_torch/bench.py)
-    built at its defaults. For each of its two rows, the t_start=4 cube and
-    the full T=20 chain: the counts set to 0, one cube driven while its
-    launch signatures are recorded, the exact counts read, the cube checked
-    and the peak memory read. Then the bench's own timing and JSON line, and
-    one full-width bf16 UNet forward with the kernels held against the same
-    forward on their plain versions. Returns the two rows' reports (each
-    with its launch signatures) and the bench's JSON object."""
+def run_bench():
+    """The bf16 flagship path: the port's bench built at its defaults. Each
+    of its two rows, the t_start=4 cube and the full T=20 chain, a counted
+    run with its cube checked; the GAE's bf16 overlap average on the card
+    against the CPU's; one full-width bf16 UNet forward with the kernels
+    against the same forward on their plain versions. Returns both rows'
+    reports and calls."""
     import torch
 
     from hsi_dmgasr_tpu_torch import bench
@@ -1934,14 +1184,12 @@ def run_bench(profile):
     args = bench.parse_args([])
     model = bench.Bench(args, torch.device("cuda"))
     cube = bench.make_cube(args, model)
-    reports = {}
+    runs = {}
     for name, t_start in ((BENCH, args.t_start), (BENCH_FULL, None)):
-        out, _, peak_gib, launches, fused_calls, flash_calls, up2_calls = counted_run(
-            name, BENCH_PATHS[name], lambda: model.super_resolve(cube, 2, t_start))
+        out, calls, launches = counted_run(name, lambda: model.super_resolve(cube, 2, t_start))
         check_cube(name, out, (args.batch, model.size, model.size, model.channels))
         del out
-        reports[name] = ({"t_start": t_start, "peak_memory_gib": peak_gib,
-                          "launches": launches}, fused_calls, flash_calls, up2_calls)
+        runs[name] = ({"t_start": t_start, "launches": launches}, calls)
 
     # the GAE's overlap average on the card: index_add_ of bf16 adds with
     # atomics, rounding after each add in no fixed order, where the CPU's
@@ -1959,14 +1207,8 @@ def run_bench(profile):
     log(f"[{BENCH}] bf16 overlap average, card vs CPU: {merge}")
     if merge["max_abs"] > 2 * 2 ** -6 / 3 + 2 ** -8:
         raise AssertionError(f"[{BENCH}] bf16 overlap average, card vs CPU: {merge}")
-    reports[BENCH][0]["overlap_average_vs_cpu"] = merge
+    runs[BENCH][0]["overlap_average_vs_cpu"] = merge
     del dec, got, want, d
-
-    result = bench.run(args, model)
-    log(f"[{BENCH}] bench: {json.dumps(result)}")
-    reports[BENCH][0]["cube_seconds"] = result["value"]
-    reports[BENCH_FULL][0]["cube_seconds"] = result["full_chain"]["value"]
-    reports[BENCH][0]["bench"] = result
 
     # full-width bf16 UNet forward, kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1977,11 +1219,6 @@ def run_bench(profile):
         x = torch.cat([cond, noise], -1)
         t = torch.full((x.shape[0], 1), 0.5, device="cuda").to(model.dtype)
         y_kernel = model.unet(x, t)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.unet(x, t)
-        torch.cuda.synchronize()
-        fwd_s = time.perf_counter() - t0
         with plain_kernels():
             y_plain = model.unet(x, t)
         if y_kernel.dtype != torch.bfloat16 or y_plain.dtype != torch.bfloat16:
@@ -1992,35 +1229,11 @@ def run_bench(profile):
         if not bool((d <= TOL_UNET + TOL_UNET * y_plain.abs()).all()):
             raise AssertionError(f"[{BENCH}] full-width bf16 UNet kernels vs plain: {unet_err}")
     del y_kernel, y_plain, d, x, cond, z, noise
-    log(f"[{BENCH}] full-width bf16 UNet forward (B=9, 512^2): kernels vs plain {unet_err}, "
-        f"forward {fwd_s:.4f} s")
-    reports[BENCH][0].update(unet_forward_err=unet_err, unet_forward_s=fwd_s)
-
-    if profile:
-        gen = torch.Generator(device="cuda").manual_seed(9)
-        b, ts = cube.shape[0], args.t_start
-
-        def chain(cond):
-            with torch.inference_mode():
-                return model.diffusion.sample_loop(model._denoise, cond=cond, t_start=ts,
-                                                   generator=gen)
-
-        def encode(_):
-            with torch.inference_mode():
-                z = model.gae.encode(cube.to(model.dtype))
-                return z.reshape(-1, *z.shape[2:])
-
-        def decode(z):
-            with torch.inference_mode():
-                return model.gae.decode(z.reshape(b, -1, *z.shape[1:]).to(model.dtype))
-
-        reports[BENCH][0]["profile"] = profile_cube(
-            lambda: model.super_resolve(cube, 9, ts),
-            (("encode", encode), ("chain", chain), ("decode", decode)))
-        log_profile(BENCH, reports[BENCH][0]["profile"])
+    log(f"[{BENCH}] full-width bf16 UNet forward (B=9, 512^2): kernels vs plain {unet_err}")
+    runs[BENCH][0]["unet_forward_err"] = unet_err
     del model
     torch.cuda.empty_cache()
-    return reports
+    return runs
 
 
 # ------------------------------------------------------------ training
@@ -2107,11 +1320,9 @@ def step_against_cpu(opt, state_dict):
     for dev in ("cpu", "cuda"):
         model = DDPMModel(opt, device=dev)
         model.unet.load_state_dict(state_dict)
-        t0 = time.perf_counter()
         loss = model.compute_grads(batch, gamma=gamma, noise=noise)
         out[dev] = (float(loss), {n: p.grad.detach().cpu() for n, p in
                                   model.unet.named_parameters()})
-        log(f"[{TRAIN}] one batch-1 64^2 step on {dev}: {time.perf_counter() - t0:.2f} s")
         del model
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out["cpu"], out["cuda"]
     gmax = max(g.abs().max().item() for g in g_cpu.values())
@@ -2125,43 +1336,36 @@ def step_against_cpu(opt, state_dict):
     return res
 
 
-def run_train(profile, dirs, gae_ckpt):
+def run_train(dirs, gae_ckpt):
     """The training path: configs/pavia_x4_r3.json through the port's
     driver (``stage2_driver.train``) on the scenes ``dirs`` and the stage-1
     checkpoint directory ``gae_ckpt``, TRAIN_STEPS steps then one periodic
-    save, one validation and one best save. Counts: 0 before the first
-    step, read when the validation starts (the steps launch no kernel) and
-    when it ends (TRAIN_VAL). Checks every step's loss is finite, the EMA
-    after every step on a few leaves, the save -> fresh DDPMModel ->
-    load_resume round trip bit for bit, every weight's _version moved by
-    one more step (else the fused Block's packed weights go stale) and the
-    fused EMA UNet then against its plain and unfused forwards (both within
-    TOL_UNET), and one step on the card against the CPU's. Times every step
-    (median after 2 warm-up steps) and reads the peak memory of the steps."""
+    save, one validation and one best save. The steps launch no kernel;
+    the validation is a counted run. Checks every step's loss is finite,
+    the EMA after every step on a few leaves, the validation's PNGs and
+    metrics, the save -> fresh DDPMModel -> load_resume round trip bit for
+    bit, every weight's _version moved by one more step (else the fused
+    Block's packed weights go stale) and the fused EMA UNet then against
+    its plain and unfused forwards (both within TOL_UNET), and one step on
+    the card against the CPU's. Returns its report and the validation's
+    calls."""
     import torch
 
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
     from hsi_dmgasr_tpu_torch.pipeline import DMGASRPipeline
     from hsi_dmgasr_tpu_torch.train import stage2_driver as drv
     from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
-    from hsi_dmgasr_tpu_torch.utils.roofline import device_f32_peak, unet_step_ops
 
     root = os.path.join(ROOT, "build", TRAIN)
     shutil.rmtree(root, ignore_errors=True)
     opt = train_config(root, dirs, gae_ckpt)
     log(f"[{TRAIN}] the GAE: {gae_ckpt}, trained by {TRAIN_GAE}")
-    steps, ema_errs, val, fused_calls, flash_calls, up2_calls = [], [], {}, {}, {}, {}
+    losses, ema_errs, val = [], [], {}
     real_step, real_apply = DMGASRPipeline.train_step_from_hr, DDPMModel.apply_gradients
     real_validate = drv.validate
 
-    def timed_step(self, hr, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
+    def recorded_step(self, hr, **kw):
         loss = real_step(self, hr, **kw)
-        torch.cuda.synchronize()
-        steps.append({"s": time.perf_counter() - t, "loss": float(loss),
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        losses.append(float(loss))
         return loss
 
     def checked_apply(self):
@@ -2178,41 +1382,24 @@ def run_train(profile, dirs, gae_ckpt):
 
     def counted_validate(*args, **kw):
         torch.cuda.synchronize()
-        val["train_launches"] = kernel_counts()
-        fc.LAUNCHES = fa.LAUNCHES = 0
-        zero_up2()
-        zero_attention()
-        with recording(fused_calls, flash_calls, up2_calls):
-            res = real_validate(*args, **kw)
-        torch.cuda.synchronize()
-        val["launches"] = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
-        val["split"], SPLIT_SIGS[TRAIN] = attention_routes(f"{TRAIN} validation")
-        val["up2"] = up2_launches(f"{TRAIN} validation", TRAIN_VAL[FUSED] // BLOCKS_PER_FORWARD,
-                                  up2_calls)
+        no_launches(f"{TRAIN} steps")
+        res, val["calls"], val["launches"] = counted_run(
+            f"{TRAIN} validation", lambda: real_validate(*args, **kw), TRAIN)
         return res
 
     zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(DMGASRPipeline, "train_step_from_hr", timed_step), \
+    with mock.patch.object(DMGASRPipeline, "train_step_from_hr", recorded_step), \
             mock.patch.object(DDPMModel, "apply_gradients", checked_apply), \
             mock.patch.object(drv, "validate", counted_validate):
         pipe, results = drv.train(opt, seed=0, max_steps=TRAIN_STEPS)
     ddpm = pipe.ddpm
-    losses = [st["loss"] for st in steps]
-    log(f"[{TRAIN}] {len(steps)} steps, losses {losses}")
-    if len(steps) != TRAIN_STEPS or ddpm.step != TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"[{TRAIN}] {len(steps)} steps ({ddpm.step} updates), losses {losses}")
-    if val.get("train_launches") != {FUSED: 0, FLASH: 0, DOT: 0, UP2: 0, SPLIT: 0}:
-        raise AssertionError(f"[{TRAIN}] the train steps launched {val.get('train_launches')}, "
-                             "expected no kernel")
-    recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
-    log(f"[{TRAIN}] validation: {val['launches']} kernel launches ({len(fused_calls)} fused "
-        f"signatures, {recorded} recorded), {results['ave_time']:.4f} s per cube "
-        f"({results['n']} scenes x {results['n_chains']} chains), MPSNR "
+    log(f"[{TRAIN}] {len(losses)} steps, losses {losses}")
+    if len(losses) != TRAIN_STEPS or ddpm.step != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{TRAIN}] {len(losses)} steps ({ddpm.step} updates), losses {losses}")
+    if "launches" not in val:
+        raise AssertionError(f"[{TRAIN}] no validation ran")
+    log(f"[{TRAIN}] validation: {results['n']} scenes x {results['n_chains']} chains, MPSNR "
         f"{results['indices']['MPSNR']:.3f}, MPSNR_cc {results['indices_cc']['MPSNR']:.3f}")
-    if val["launches"] != TRAIN_VAL or recorded != TRAIN_VAL:
-        raise AssertionError(f"[{TRAIN}] validation launched {val['launches']} ({recorded} "
-                             f"recorded), expected {TRAIN_VAL}")
     if not all(math.isfinite(v) for v in (*results["indices"].values(),
                                           *results["indices_cc"].values())):
         raise AssertionError(f"[{TRAIN}] validation metrics {results}")
@@ -2225,31 +1412,9 @@ def run_train(profile, dirs, gae_ckpt):
         raise AssertionError(f"[{TRAIN}] EMA vs its recomputation: {ema_errs}")
     log(f"[{TRAIN}] EMA vs 0.999 EMA_prev + 0.001 params on {len(ema_leaves(ddpm))} leaves, "
         f"worst per step: {max(ema_errs):.2e}")
-
-    # timing: the steps after 2 warm-up steps
-    step_s = statistics.median(st["s"] for st in steps[2:])
-    peak_gib = max(st["peak_gib"] for st in steps)
-    n_latents = opt["datasets"]["train"]["batch_size"] * GAE_CFG["G"]
-    size = opt["datasets"]["train"]["l_resolution"] * opt["scale"]  # the HR crop
-    flops = 3 * sum(op.flops for op in unet_step_ops(n_latents, size))
-    peak_tflops = device_f32_peak(torch.cuda.get_device_name(0))
-    report = {"config": "pavia_x4_r3.json", "steps": TRAIN_STEPS, "step_seconds": step_s,
-              "step_times": [st["s"] for st in steps], "losses": losses,
-              "latents_per_second": n_latents / step_s, "peak_memory_gib": peak_gib,
-              "step_tflop": flops / 1e12, "f32_peak_tflops": peak_tflops,
-              "roofline_share_f32": flops / step_s / (peak_tflops * 1e12),
-              "val_cube_seconds": results["ave_time"],
+    report = {"config": "pavia_x4_r3.json", "steps": TRAIN_STEPS, "losses": losses,
               "val_results": json.loads(json.dumps(results, default=float)),
-              "ema_worst_rel_err": max(ema_errs),
-              "launches": {**val["launches"], UP2: val["up2"], SPLIT: val["split"]["split"]}}
-    log(f"[{TRAIN}] ms per train step (median of {len(steps) - 2} after 2 warm-up): "
-        f"{step_s * 1e3:.2f} ({n_latents} latents of {size}^2 from "
-        f"{opt['datasets']['train']['batch_size']} HR crops)")
-    log(f"[{TRAIN}] latents per second {report['latents_per_second']:.2f}, peak memory "
-        f"{peak_gib:.2f} GiB")
-    log(f"[{TRAIN}] roofline share: 3 x {flops / 3e12:.3f} TFLOP forward over the step against "
-        f"the f32 peak {peak_tflops} TFLOP/s: {report['roofline_share_f32']:.4f}")
-    log(f"[{TRAIN}] seconds per validation cube ({VAL_HW}^2 x 102): {results['ave_time']:.4f}")
+              "ema_worst_rel_err": max(ema_errs), "launches": val["launches"]}
 
     # save -> fresh DDPMModel -> load_resume, bit for bit
     ckpt = os.path.join(opt["path"]["checkpoint"], f"I{TRAIN_STEPS}_E1")
@@ -2283,6 +1448,7 @@ def run_train(profile, dirs, gae_ckpt):
     weights = list(ddpm.unet.parameters()) + list(unet.parameters())
     versions = [w._version for w in weights]
     gen = torch.Generator(device="cuda").manual_seed(7)
+    size = opt["datasets"]["train"]["l_resolution"] * opt["scale"]  # the HR crop
     hr = torch.rand((4, size, size, GAE_CFG["n_colors"]), generator=gen, device="cuda")
     pipe.train_step_from_hr(hr, scale=opt["scale"])
     stale = sum(w._version == v for w, v in zip(weights, versions))
@@ -2299,25 +1465,58 @@ def run_train(profile, dirs, gae_ckpt):
     del x
 
     report["card_vs_cpu_step"] = step_against_cpu(opt, ddpm.unet.state_dict())
-
-    if profile:
-        batch = opt["datasets"]["train"]["batch_size"]
-        hr = torch.rand((batch, size, size, GAE_CFG["n_colors"]), generator=gen, device="cuda")
-        degrade = pipe._degrade_fn((size, size), opt["scale"])
-
-        def encode(sr):
-            with torch.no_grad():
-                return {"HR": pipe._fold(pipe._encode(hr)), "SR": pipe._fold(pipe._encode(sr))}
-
-        report["profile"] = profile_cube(
-            lambda: pipe.train_step_from_hr(hr, scale=opt["scale"]),
-            (("degrade", lambda _: degrade(hr)), ("encode", encode),
-             ("unet_fwd_bwd", lambda z: ddpm.compute_grads(z)),
-             ("adam_ema", lambda _: ddpm.apply_gradients())))
-        log_profile(TRAIN, report["profile"])
     del pipe, ddpm, unet
     torch.cuda.empty_cache()
-    return report, fused_calls, flash_calls, up2_calls
+    return report, val["calls"]
+
+
+def run_train_remat(dirs, gae_ckpt):
+    """train_r3_remat: train_r3's configuration with model.unet.remat off and
+    on, each a fresh stage-2 pipeline from seed 0 on the GAE train_gae saved:
+    one step's loss and gradients from the same HR crops and the same
+    dropout generator; the remat step's within atol 1e-4, rtol 1e-3 of the
+    plain step's; no kernel launched."""
+    import torch
+
+    from hsi_dmgasr_tpu_torch.train import stage2_driver as drv
+
+    opt = train_config(os.path.join(ROOT, "build", REMAT), dirs, gae_ckpt)
+    size = opt["datasets"]["train"]["l_resolution"] * opt["scale"]
+    hr = torch.rand((opt["datasets"]["train"]["batch_size"], size, size, GAE_CFG["n_colors"]),
+                    generator=torch.Generator(device="cuda").manual_seed(14), device="cuda")
+    steps = {}
+    zero_counts()
+    for remat in (False, True):
+        opt["model"]["unet"]["remat"] = remat
+        pipe = drv.build_pipeline(opt, seed=0)
+        with torch.no_grad():
+            sr = pipe._degrade_fn((size, size), opt["scale"])(hr)
+            batch = {"HR": pipe._fold(pipe._encode(hr)), "SR": pipe._fold(pipe._encode(sr))}
+        dropout = torch.Generator(device="cuda").manual_seed(15)
+        loss = pipe.ddpm.compute_grads(batch, generator=dropout)
+        steps[remat] = {"loss": float(loss), "grads": {
+            n: p.grad.detach().clone() for n, p in pipe.ddpm.unet.named_parameters()}}
+        del pipe, batch, sr
+        torch.cuda.empty_cache()
+    launches = no_launches(REMAT)
+    plain, remat = steps[False], steps[True]
+    worst, leaves = 0.0, 0
+    for n, g in plain["grads"].items():
+        d = (remat["grads"][n] - g).abs()
+        worst = max(worst, d.max().item())
+        leaves += not bool((d <= TOL_REMAT_ABS + TOL_REMAT_REL * g.abs()).all())
+    loss_err = abs(remat["loss"] - plain["loss"])
+    report = {"remat_vs_plain": {"loss_plain": plain["loss"], "loss_remat": remat["loss"],
+                                 "loss_abs_err": loss_err, "grad_max_abs_err": worst,
+                                 "grad_leaves_outside": leaves,
+                                 "grad_max_abs": max(g.abs().max().item()
+                                                     for g in plain["grads"].values())},
+              "launches": launches}
+    log(f"[{REMAT}] remat vs plain step (same weights, crops, dropout generator): "
+        f"{report['remat_vs_plain']}")
+    if leaves or loss_err > TOL_REMAT_ABS + TOL_REMAT_REL * abs(plain["loss"]):
+        raise AssertionError(f"[{REMAT}] remat step vs plain step: {report['remat_vs_plain']}")
+    return report
 
 
 def sample_opt():
@@ -2336,8 +1535,7 @@ def sample_step_against_cpu(opt, state_dict):
     the card and on the CPU from the same weights and running statistics:
     the loss (TOL_STEP_LOSS), every gradient (TOL_STEP_GRAD of the largest
     |g|), and the BatchNorm running statistics after the step (moved, and
-    within TOL_STEP_STATS of the CPU's). Returns the comparison and the
-    card's step seconds."""
+    within TOL_STEP_STATS of the CPU's)."""
     import torch
 
     from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
@@ -2353,18 +1551,13 @@ def sample_step_against_cpu(opt, state_dict):
     for dev in ("cpu", "cuda"):
         model = DDPMModel(opt, device=dev)
         model.unet.load_state_dict(state_dict)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         loss = float(model.compute_grads(batch, t=t, noise=noise))
         grads = {n: p.grad.detach().cpu() for n, p in model.unet.named_parameters()}
         model.apply_gradients()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
         stats = {n: b.detach().cpu() for n, b in model.unet.named_buffers() if n in before}
-        out[dev] = (loss, grads, stats, secs)
-        log(f"[{SAMPLE}] one train step of {SAMPLE_BATCH} x {size}^2 x 3 on {dev}: {secs:.2f} s")
+        out[dev] = (loss, grads, stats)
         del model
-    (loss_cpu, g_cpu, s_cpu, _), (loss_gpu, g_gpu, s_gpu, step_s) = out["cpu"], out["cuda"]
+    (loss_cpu, g_cpu, s_cpu), (loss_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
     gmax = max(g.abs().max().item() for g in g_cpu.values())
     res = {"loss_cpu": loss_cpu, "loss_card": loss_gpu,
            "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
@@ -2378,76 +1571,34 @@ def sample_step_against_cpu(opt, state_dict):
             or res["stats_worst_rel_err"] > TOL_STEP_STATS or res["stats_unmoved"]
             or not before):
         raise AssertionError(f"[{SAMPLE}] card step vs CPU step: {res}")
-    return res, step_s
+    return res
 
 
-def run_sample(profile):
+def run_sample():
     """Unconditional generation under configs/sample_ddpm_16.json at its full
-    width on seeded orthogonal weights: counts to 0, one train step against
-    the CPU's (sample_step_against_cpu), then DDPMModel.sample of SAMPLE_N
-    images: one UNet forward timed first, and the config's 2000-step
-    ancestral chain run when 2000 forwards take at most SAMPLE_CHAIN_S,
-    else DDIM over SAMPLE_DDIM_STEPS. Checks the samples finite and no
-    kernel launch; reads the peak memory."""
+    width on seeded orthogonal weights: one train step against the CPU's
+    (sample_step_against_cpu), then DDPMModel.sample of SAMPLE_N images by
+    DDIM over SAMPLE_DDIM_STEPS. Checks the samples finite and no kernel
+    launch but the split attention kernel's (the unfused UNet's
+    attention)."""
     import torch
 
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
     from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
 
     opt = sample_opt()
-    fc.LAUNCHES = fa.LAUNCHES = bd.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     ddpm = DDPMModel(opt, seed=0)
-    report = {"config": "sample_ddpm_16.json", "card_vs_cpu_step": None}
-    report["card_vs_cpu_step"], report["train_step_seconds"] = sample_step_against_cpu(
-        opt, {k: v.cpu() for k, v in ddpm.unet.state_dict().items()})
-    size, T = opt["model"]["diffusion"]["image_size"], ddpm.val_diffusion.schedule.num_timesteps
-    gen = torch.Generator(device="cuda").manual_seed(14)
-    x = torch.randn((SAMPLE_N, size, size, 3), generator=gen, device="cuda")
-    t = torch.full((SAMPLE_N,), T - 1, dtype=torch.int32, device="cuda")
-    times = []
-    with torch.inference_mode():
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ddpm._denoise(x, t)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-    fwd_s = statistics.median(times[2:])
-    ancestral = fwd_s * T <= SAMPLE_CHAIN_S
-    if not ancestral:
-        opt["model"]["diffusion"].update(sampler="ddim", ddim_steps=SAMPLE_DDIM_STEPS)
-    chain = f"ancestral, {T} steps" if ancestral else f"DDIM, {SAMPLE_DDIM_STEPS} steps"
-    log(f"[{SAMPLE}] one UNet forward (B={SAMPLE_N}, {size}^2): {fwd_s * 1e3:.2f} ms; x {T} = "
-        f"{fwd_s * T:.1f} s against {SAMPLE_CHAIN_S} s: the chain is {chain}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = ddpm.sample(SAMPLE_N, generator=gen)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
-    log(f"[{SAMPLE}] sample of {tuple(out.shape)}: {secs:.2f} s ({chain}), peak memory "
-        f"{peak_gib:.2f} GiB, kernel launches {launches}, range [{out.min().item():.3f}, "
-        f"{out.max().item():.3f}]")
+    report = {"config": "sample_ddpm_16.json", "card_vs_cpu_step": sample_step_against_cpu(
+        opt, {k: v.cpu() for k, v in ddpm.unet.state_dict().items()})}
+    opt["model"]["diffusion"].update(sampler="ddim", ddim_steps=SAMPLE_DDIM_STEPS)
+    size = opt["model"]["diffusion"]["image_size"]
+    out = ddpm.sample(SAMPLE_N, generator=torch.Generator(device="cuda").manual_seed(14))
+    log(f"[{SAMPLE}] DDIM sample ({SAMPLE_DDIM_STEPS} steps) of {tuple(out.shape)}, range "
+        f"[{out.min().item():.3f}, {out.max().item():.3f}]")
     if tuple(out.shape) != (SAMPLE_N, size, size, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"[{SAMPLE}] samples {tuple(out.shape)} or non-finite values")
-    if launches != {FUSED: 0, FLASH: 0, DOT: 0}:
-        raise AssertionError(f"[{SAMPLE}] launched {launches}, expected no kernel")
-    report.update(unet_forward_s=fwd_s, chain=chain, sample_seconds=secs,
-                  peak_memory_gib=peak_gib, launches=launches)
-    if profile:
-        def forwards():
-            with torch.inference_mode():
-                for _ in range(10):
-                    ddpm._denoise(x, t)
-
-        report["profile"] = profile_cube(forwards, (("unet_forward",
-                                                     lambda _: forwards()),))
-        log_profile(SAMPLE, report["profile"])
-    del ddpm, out, x
+    report["launches"] = no_launches(SAMPLE, split=None)
+    del ddpm, out
     torch.cuda.empty_cache()
     return report
 
@@ -2479,13 +1630,9 @@ def gae_step_against_cpu(state_dict, crop, vgg=None, bands=None):
             if dt == torch.float64:  # the trainer's cast to f32, widened to f64
                 tr.gae.double()
                 tr._to_f32 = lambda x, d=dev: torch.as_tensor(x, device=d).double()
-            t0 = time.perf_counter()
             loss = tr.compute_grads(crop[None], bands=bands).item()
             out[dev, dt] = (loss, {n: p.grad.detach().double().cpu()
                                    for n, p in tr.gae.named_parameters()})
-            log(f"[{TRAIN_GAE}] one batch-1 {crop.shape[0]}^2 step on {dev} in {str(dt)[6:]}"
-                f"{'' if vgg is None else ' with the perceptual term'}: "
-                f"{time.perf_counter() - t0:.2f} s")
             del tr, pfn
 
     def worst_leaf(a, b):
@@ -2513,50 +1660,37 @@ def gae_step_against_cpu(state_dict, crop, vgg=None, bands=None):
     return res
 
 
-def run_train_gae(profile, dirs):
+def run_train_gae(dirs):
     """Stage-1 GAE training as a user runs it: ``cli.ae.main`` on the scenes
     ``dirs`` at the Pavia GAE's width (the CLI's defaults: n_subs 16,
     n_ovls 4, n_colors 102, n_feats 64, scale 4, batch 8), device-resident,
     TRAIN_GAE_STEPS steps ending on a save; then ``cli.gae_test.main`` on
-    the saved directory over the 3 val scenes at 128^2. Counts: 0 before
-    the CLI, none after (the path runs no kernel of the port). Checks every
-    step's loss is finite, the checkpoint back into a fresh GAE bit for
-    bit, one batch-1 step on the card against the CPU's with HLoss (f32)
-    and with the perceptual term (f64; a seeded torchvision-layout VGG19),
-    and every
-    cube's gae_test metrics finite. Times every step (median after 2
-    warm-up steps), a perceptual step, and gae_test per cube. Returns the
-    report and the checkpoint directory."""
+    the saved directory over the 3 val scenes at 128^2. Checks no kernel
+    launch, every step's loss finite, the checkpoint back into a fresh GAE
+    bit for bit, one batch-1 step on the card against the CPU's with HLoss
+    (f32) and with the perceptual term (f64; a seeded torchvision-layout
+    VGG19), and every cube's gae_test metrics finite. Returns the report
+    and the checkpoint directory."""
     import numpy as np
     import torch
 
     from hsi_dmgasr_tpu_torch.cli import ae, gae_test
-    from hsi_dmgasr_tpu_torch.data.device_cache import DeviceSceneCache
     from hsi_dmgasr_tpu_torch.data.hs_datasets import HSTrainingData
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
     from hsi_dmgasr_tpu_torch.models.gae import GAE
     from hsi_dmgasr_tpu_torch.models.networks import init_weights
     from hsi_dmgasr_tpu_torch.models.vgg import VGG19
-    from hsi_dmgasr_tpu_torch.train.stage1_gae import GAETrainer, make_vgg_perceptual_fn
-    from hsi_dmgasr_tpu_torch.utils.roofline import device_f32_peak, gae_forward_ops
+    from hsi_dmgasr_tpu_torch.train.stage1_gae import GAETrainer
 
     root = os.path.join(ROOT, "build", TRAIN_GAE)
     shutil.rmtree(root, ignore_errors=True)
     out = os.path.join(root, "gae")
     kw = {k: GAE_CFG[k] for k in ("n_subs", "n_ovls", "n_colors", "n_feats")}
-    size = 32 * 4  # the CLI's crop: 32 * scale
-    steps = []
+    losses = []
     real_step = GAETrainer.train_step
 
-    def timed_step(self, hr, **step_kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
+    def recorded_step(self, hr, **step_kw):
         loss = real_step(self, hr, **step_kw)
-        torch.cuda.synchronize()
-        steps.append({"s": time.perf_counter() - t, "loss": float(loss),
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        losses.append(float(loss))
         return loss
 
     argv = ["--data", dirs["mat"], "--datatype", "hsi_mat", "--device_resident",
@@ -2565,47 +1699,17 @@ def run_train_gae(profile, dirs):
             "--batch_size", str(TRAIN_GAE_BATCH), "--epochs", str(TRAIN_GAE_EPOCHS),
             "--max_steps", str(TRAIN_GAE_STEPS), "--out", out]
     log(f"[{TRAIN_GAE}] python -m hsi_dmgasr_tpu_torch.cli.ae {' '.join(argv)}")
-    fc.LAUNCHES = 0
-    fa.LAUNCHES = 0
-    bd.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-    t_cli = time.perf_counter()
-    with mock.patch.object(GAETrainer, "train_step", timed_step):
+    zero_counts()
+    with mock.patch.object(GAETrainer, "train_step", recorded_step):
         trainer = ae.main(argv)
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t_cli
-    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
-    losses = [st["loss"] for st in steps]
-    log(f"[{TRAIN_GAE}] {len(steps)} steps, losses {losses}, kernel launches {launches}")
-    if len(steps) != TRAIN_GAE_STEPS or trainer.step != TRAIN_GAE_STEPS \
+    launches = no_launches(TRAIN_GAE)
+    log(f"[{TRAIN_GAE}] {len(losses)} steps, losses {losses}")
+    if len(losses) != TRAIN_GAE_STEPS or trainer.step != TRAIN_GAE_STEPS \
             or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"[{TRAIN_GAE}] {len(steps)} steps ({trainer.step} updates), "
+        raise AssertionError(f"[{TRAIN_GAE}] {len(losses)} steps ({trainer.step} updates), "
                              f"losses {losses}")
-    if launches != {FUSED: 0, FLASH: 0, DOT: 0}:
-        raise AssertionError(f"[{TRAIN_GAE}] launched {launches}, expected no kernel")
-
-    step_s = statistics.median(st["s"] for st in steps[2:])
-    peak_gib = max(st["peak_gib"] for st in steps)
-    flops = 3 * sum(op.flops for op in gae_forward_ops(TRAIN_GAE_BATCH, size, **kw))
-    peak_tflops = device_f32_peak(torch.cuda.get_device_name(0))
     report = {"cli": "cli.ae " + " ".join(argv[2:]), "steps": TRAIN_GAE_STEPS,
-              "step_seconds": step_s, "step_times": [st["s"] for st in steps],
-              "losses": losses, "crops_per_second": TRAIN_GAE_BATCH / step_s,
-              "peak_memory_gib": peak_gib, "step_tflop": flops / 1e12,
-              "f32_peak_tflops": peak_tflops,
-              "f32_bound_ms": flops / (peak_tflops * 1e12) * 1e3,
-              "roofline_share_f32": flops / step_s / (peak_tflops * 1e12), "launches": launches,
-              "cli_seconds": cli_s, "cli_seconds_per_step": cli_s / TRAIN_GAE_STEPS}
-    log(f"[{TRAIN_GAE}] the CLI: {cli_s:.2f} s for {TRAIN_GAE_STEPS} steps and the save (the "
-        f"scenes' loading and the native resize included), {cli_s / TRAIN_GAE_STEPS:.3f} s a step")
-    log(f"[{TRAIN_GAE}] ms per train step (median of {len(steps) - 2} after 2 warm-up): "
-        f"{step_s * 1e3:.2f} ({TRAIN_GAE_BATCH} HR crops of {size}^2 x {kw['n_colors']}, "
-        f"{TRAIN_GAE_BATCH * GAE_CFG['G']} group images)")
-    log(f"[{TRAIN_GAE}] crops per second {report['crops_per_second']:.2f}, peak memory "
-        f"{peak_gib:.2f} GiB")
-    log(f"[{TRAIN_GAE}] roofline share: 3 x {flops / 3e12:.3f} TFLOP forward over the step "
-        f"against the f32 peak {peak_tflops} TFLOP/s ({report['f32_bound_ms']:.1f} ms): "
-        f"{report['roofline_share_f32']:.4f}")
+              "losses": losses, "launches": launches}
 
     # the checkpoint the CLI saved -> a fresh GAE, bit for bit
     sd, cfg = GAETrainer.load_gae_variables(out)
@@ -2617,7 +1721,7 @@ def run_train_gae(profile, dirs):
         raise AssertionError(f"[{TRAIN_GAE}] {out} did not load back bit for bit ({cfg})")
     log(f"[{TRAIN_GAE}] save -> load_gae_variables -> a fresh GAE: {len(live)} tensors equal "
         f"bit for bit, config {cfg}")
-    del fresh, live
+    del fresh, live, trainer
 
     # one batch-1 step on the card against the CPU's, on an f16-rounded crop
     ds = HSTrainingData(dirs["mat"], n_scale=4, augment=True, hr_only=True,
@@ -2631,24 +1735,7 @@ def run_train_gae(profile, dirs):
     log(f"[{TRAIN_GAE}] card vs CPU step, HLoss + {TRAIN_GAE_P_WEIGHT} x the perceptual term "
         f"(VGG19 with seeded He-normal weights, not pretrained; bands {TRAIN_GAE_BANDS}): "
         f"{report['card_vs_cpu_perceptual_step']}")
-
-    # a perceptual step at the path's batch: HLoss + 1e-3 x the VGG19 term
-    cache = DeviceSceneCache.from_dataset(ds, gt_size=size, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    hr = cache.sample(gen, TRAIN_GAE_BATCH)
-    ptr = GAETrainer(**kw, state_dict=sd, device="cuda",
-                     perceptual_fn=make_vgg_perceptual_fn(vgg.cuda()))
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ptr.train_step(hr)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    report["perceptual_step_seconds"] = statistics.median(times[2:])
-    log(f"[{TRAIN_GAE}] ms per step with the perceptual term (median of 3 after 2 warm-up, "
-        f"seeded VGG19): {report['perceptual_step_seconds'] * 1e3:.2f}")
-    del ptr, vgg, cache
+    del vgg
 
     # gae_test on the saved directory: every cube's metrics finite
     cubes = []
@@ -2658,32 +1745,14 @@ def run_train_gae(profile, dirs):
         cubes.append(real_qa(*a, **k))
         return cubes[-1]
 
-    t0 = time.perf_counter()
     with mock.patch.object(gae_test, "quality_assessment", recorded_qa):
         avg = gae_test.main(["--ckpt", out, "--data", dirs["npy"], "--gt_size", str(VAL_HW),
                              "--scale", "4"])
-    secs = (time.perf_counter() - t0) / max(len(cubes), 1)
     if len(cubes) != 3 or not all(math.isfinite(v) for qa in cubes for v in qa.values()):
         raise AssertionError(f"[{TRAIN_GAE}] gae_test metrics {cubes}")
-    report["gae_test"] = json.loads(json.dumps(
-        {"cube_seconds": secs, "averaged": avg, "cubes": cubes}, default=float))
+    report["gae_test"] = json.loads(json.dumps({"averaged": avg, "cubes": cubes}, default=float))
     log(f"[{TRAIN_GAE}] gae_test: {len(cubes)} cubes of {VAL_HW}^2 x {kw['n_colors']}, "
-        f"{secs:.3f} s a cube, averaged {avg}")
-
-    if profile:
-        hr = torch.rand((TRAIN_GAE_BATCH, size, size, kw["n_colors"]),
-                        generator=torch.Generator(device="cuda").manual_seed(12), device="cuda")
-
-        def forward_loss(_):
-            trainer.optimizer.zero_grad(set_to_none=True)
-            return trainer.loss(hr)
-
-        report["profile"] = profile_cube(
-            lambda: trainer.train_step(hr),
-            (("forward_loss", forward_loss), ("backward", lambda loss: loss.backward()),
-             ("adam", lambda _: trainer.apply_gradients())))
-        log_profile(TRAIN_GAE, report["profile"])
-    del trainer
+        f"averaged {avg}")
     torch.cuda.empty_cache()
     return report, out
 
@@ -2747,29 +1816,32 @@ def decoded_pngs(results, shapes):
     return found
 
 
-def run_infer(profile, faces):
+def process_frames(steps):
+    """The frames a chain of ``steps`` steps keeps, and the (H, W, 3) of
+    their process grid of 128^2 images."""
+    frames = 1 + len([t for t in range(steps) if t % (1 | (steps // 10)) == 0])
+    return frames, (int(math.sqrt(frames)) * 128,
+                    math.ceil(frames / int(math.sqrt(frames))) * 128, 3)
+
+
+def run_infer(faces):
     """SR3 inference as a user runs it: ``cli.infer.main`` on
     configs/sr_sr3_16_128.json at full width with ``model.unet.fuse`` on and
     ``--process_mode grid``, on the card, over the first INFER_IMAGES
-    images of ``faces``; the val schedule cut to INFER_T steps. Counts: 0
-    before the CLI, read around each image's chain (exactly
-    INFER_PER_IMAGE each) and at the end, while the launch signatures are
-    recorded. Checks every written PNG decodes to its shape, each chain's
-    output finite, one full-width B=1 forward and the first INFER_REPLAY
-    steps of the chain (replayed from one seeded x_init and noise) with the
-    kernels against their plain versions (TOL_UNET), and cli.eval's
-    PSNR/SSIM over the written pairs finite. Times each image, one
-    forward, and reads the peak memory."""
+    images of ``faces``; the val schedule cut to INFER_T steps. A counted
+    run, each image's chain with its own fused launches. Checks every
+    written PNG decodes to its shape, each chain's output finite, one
+    full-width B=1 forward and the first INFER_REPLAY steps of the chain
+    (replayed from one seeded x_init and noise) with the kernels against
+    their plain versions (TOL_UNET), and cli.eval's PSNR/SSIM over the
+    written pairs finite."""
     import contextlib
     import io
 
-    import numpy as np
     import torch
 
     from hsi_dmgasr_tpu_torch.cli import eval as eval_cli
     from hsi_dmgasr_tpu_torch.cli import infer
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
     from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
     from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
 
@@ -2786,55 +1858,35 @@ def run_infer(profile, faces):
     argv = ["-c", cfg, "-p", "val", "--process_mode", "grid", "--experiments_root",
             os.path.join(root, "exp")]
     log(f"[{INFER}] python -m hsi_dmgasr_tpu_torch.cli.infer {' '.join(argv)}")
-    images, models, fused_calls, flash_calls, up2_calls = [], [], {}, {}, {}
+    images, models = [], []
     real_sr = DDPMModel.super_resolution
 
-    def counted(self, cond, *a, **kw):
-        torch.cuda.synchronize()
-        n0, t0 = fc.LAUNCHES, time.perf_counter()
+    def per_image(self, cond, *a, **kw):
+        n0 = fc.LAUNCHES
         out = real_sr(self, cond, *a, **kw)
-        torch.cuda.synchronize()
-        images.append({"s": time.perf_counter() - t0, "launches": fc.LAUNCHES - n0,
-                       "shape": tuple(out.shape), "finite": bool(torch.isfinite(out).all())})
+        images.append({"launches": fc.LAUNCHES - n0, "shape": tuple(out.shape),
+                       "finite": bool(torch.isfinite(out).all())})
         models.append(self)
         return out
 
     zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with recording(fused_calls, flash_calls, up2_calls), \
-            mock.patch.object(DDPMModel, "super_resolution", counted):
+    with recording() as calls, mock.patch.object(DDPMModel, "super_resolution", per_image):
         infer.main(argv)
     torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES}
-    recorded = {FUSED: sum(fused_calls.values()), FLASH: sum(flash_calls.values())}
-    want = {k: v * INFER_IMAGES for k, v in INFER_PER_IMAGE.items()}
-    frames = 1 + len([t for t in range(INFER_T) if t % (1 | (INFER_T // 10)) == 0])
-    log(f"[{INFER}] main path: {launches} kernel launches ({len(fused_calls)} fused signatures, "
-        f"{recorded} recorded), per image {[im['launches'] for im in images]}, peak memory "
-        f"{peak_gib:.2f} GiB, the CLI {cli_s:.2f} s")
-    if (launches != want or recorded != want or bd.LAUNCHES or len(images) != INFER_IMAGES
-            or any(im["launches"] != INFER_PER_IMAGE[FUSED] for im in images)):
-        raise AssertionError(f"[{INFER}] {launches} launches ({recorded} recorded, "
-                             f"{bd.LAUNCHES} blocked-dot), per image "
-                             f"{[im['launches'] for im in images]}, expected {INFER_PER_IMAGE} "
-                             f"per image")
+    launches = check_launches(INFER, expected_launches(INFER, INFER_IMAGES), calls)
+    per = sum(expected_launches(INFER)["fused"].values())
+    frames, grid = process_frames(INFER_T)
+    if len(images) != INFER_IMAGES or any(im["launches"] != per for im in images):
+        raise AssertionError(f"[{INFER}] fused launches per image "
+                             f"{[im['launches'] for im in images]}, expected {per} each")
     if any(not im["finite"] or im["shape"] != (frames, 128, 128, 3) for im in images):
         raise AssertionError(f"[{INFER}] chain outputs {images}")
-    launches[UP2] = up2_launches(INFER, want[FUSED] // BLOCKS_PER_FORWARD, up2_calls)
-    routes, SPLIT_SIGS[INFER] = attention_routes(INFER)
-    launches[SPLIT] = routes["split"]
     results = os.path.join(root, "exp", "results")
-    grid = (int(math.sqrt(frames)) * 128, math.ceil(frames / int(math.sqrt(frames))) * 128, 3)
     decoded_pngs(results, {f"{i}_{n}.png": (grid if n == "sr_process" else (128, 128, 3))
                            for i in range(INFER_IMAGES)
                            for n in ("sr", "hr", "inf", "sr_process")})
-    image_s = statistics.median(im["s"] for im in images)
-    log(f"[{INFER}] seconds per image (median of {INFER_IMAGES}; {INFER_T} B=1 UNet forwards "
-        f"each): {image_s:.4f} {[im['s'] for im in images]}; {INFER_T / image_s:.1f} UNet "
-        f"forwards/s; {frames}-frame process grids decode")
+    log(f"[{INFER}] {INFER_IMAGES} images of {INFER_T} B=1 UNet forwards, {per} fused launches "
+        f"each; the PNGs and process grids decode")
 
     model = models[0]
     unet, d = model.eval_unet, model.val_diffusion
@@ -2844,14 +1896,6 @@ def run_infer(profile, faces):
         x = torch.cat([cond, torch.randn(cond.shape, generator=gen, device="cuda")], -1)
         t = torch.full((1, 1), 0.5, device="cuda")
         unet_err = check_unet(INFER, unet, x, t)
-        times = []
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            unet(x, t)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        fwd_s = statistics.median(times[2:])
         x_init = torch.randn(cond.shape, generator=gen, device="cuda")
         noise = torch.randn((INFER_REPLAY,) + tuple(cond.shape), generator=gen, device="cuda")
 
@@ -2865,11 +1909,8 @@ def run_infer(profile, faces):
         with plain_kernels():
             plain = replay()
     chain_err = divergence(got, plain)
-    log(f"[{INFER}] full-width UNet forward (B=1, 128^2): kernels vs plain {unet_err}; "
-        f"forward {fwd_s * 1e3:.2f} ms (median of 5 after 2): x 2000 (the config's schedule) = "
-        f"{fwd_s * 2000:.1f} s an image, x {INFER_T} = {fwd_s * INFER_T:.2f} s")
-    log(f"[{INFER}] the chain's first {INFER_REPLAY} steps from one x_init and noise, kernels "
-        f"vs plain: {chain_err}")
+    log(f"[{INFER}] full-width UNet forward (B=1, 128^2): kernels vs plain {unet_err}; the "
+        f"chain's first {INFER_REPLAY} steps from one x_init and noise: {chain_err}")
     if not within(got, plain, TOL_UNET):
         raise AssertionError(f"[{INFER}] replayed steps with the kernels vs plain: {chain_err}")
     del got, plain, noise
@@ -2883,30 +1924,11 @@ def run_infer(profile, faces):
     if sorted(metrics) != ["PSNR", "SSIM"] or not all(map(math.isfinite, metrics.values())):
         raise AssertionError(f"[{INFER}] cli.eval printed {out.getvalue()!r}")
     report = {"config": "sr_sr3_16_128.json", "n_timestep": INFER_T, "images": INFER_IMAGES,
-              "image_seconds": image_s, "image_times": [im["s"] for im in images],
-              "unet_forwards_per_second": INFER_T / image_s, "cli_seconds": cli_s,
-              "peak_memory_gib": peak_gib, "launches": launches,
-              "unet_forward_s": fwd_s, "unet_forward_err": unet_err,
+              "launches": launches, "unet_forward_err": unet_err,
               "replayed_steps_err": chain_err, "eval": metrics}
-    if profile:
-        def image():
-            with torch.inference_mode():
-                model.super_resolution(cond, generator=gen, continous=True)
-
-        def forward(_):
-            with torch.inference_mode():
-                return unet(x, t)
-
-        prof = profile_cube(image, (("unet_forward", forward),))
-        prof["fused_device_ms"] = sum(k["ms"] for k in prof["kernels"]
-                                      if "gn_swish_conv3x3" in k["name"])
-        report["profile"] = prof
-        log_profile(INFER, prof)
-        log(f"[{INFER}] one traced image: fused-Block device ms {prof['fused_device_ms']:.1f}, "
-            f"idle share {prof['idle_share']:.4f}")
     del models, model, unet
     torch.cuda.empty_cache()
-    return report, fused_calls, flash_calls, up2_calls
+    return report, calls
 
 
 def run_sample_cli(faces):
@@ -2915,15 +1937,12 @@ def run_sample_cli(faces):
     SAMPLE_CLI_T steps: ``-p train`` for SAMPLE_CLI_STEPS steps of the
     FACES images (print every 2, a checkpoint and a sample at the last),
     then ``-p val`` resuming that checkpoint through --resume
-    (path.resume_state), one process grid and one final. Counts: 0 before,
-    none after. Checks the files, that the val phase resumed the trained
-    step, and times each sample."""
+    (path.resume_state), one process grid and one final. Checks the files,
+    that the val phase resumed the trained step, and no kernel launch but
+    the split attention kernel's."""
     import torch
 
     from hsi_dmgasr_tpu_torch.cli import sample
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
     from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
 
     root = os.path.join(ROOT, "build", SAMPLE_CLI)
@@ -2938,54 +1957,40 @@ def run_sample_cli(faces):
         cfg["datasets"]["val"]["data_len"] = 1
 
     cfg = cli_config(root, SAMPLE_CLI, "sample_ddpm_16.json", faces, edit)
-    samples, models = [], []
+    models = []
     real = DDPMModel.sample
 
-    def timed(self, *a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(self, *a, **kw)
-        torch.cuda.synchronize()
-        samples.append(time.perf_counter() - t0)
+    def recorded(self, *a, **kw):
         models.append(self)
-        return out
+        return real(self, *a, **kw)
 
-    fc.LAUNCHES = fa.LAUNCHES = bd.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     ckpt = os.path.join(root, "train", "checkpoint", f"I{SAMPLE_CLI_STEPS}_E0")
-    with mock.patch.object(DDPMModel, "sample", timed):
+    with mock.patch.object(DDPMModel, "sample", recorded):
         for phase, extra in (("train", []), ("val", ["--resume", ckpt])):
             argv = ["-c", cfg, "-p", phase, "--experiments_root", os.path.join(root, phase)]
             log(f"[{SAMPLE_CLI}] python -m hsi_dmgasr_tpu_torch.cli.sample "
                 f"{' '.join(argv + extra)}")
-            t0 = time.perf_counter()
             sample.main(argv + extra)
-            torch.cuda.synchronize()
-            log(f"[{SAMPLE_CLI}] -p {phase}: {time.perf_counter() - t0:.2f} s")
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
-    if launches != {FUSED: 0, FLASH: 0, DOT: 0}:
-        raise AssertionError(f"[{SAMPLE_CLI}] launched {launches}, expected no kernel")
+    torch.cuda.synchronize()
+    launches = no_launches(SAMPLE_CLI, split=None)
     if not os.path.exists(os.path.join(ckpt, "state.pt")):
         raise AssertionError(f"[{SAMPLE_CLI}] no checkpoint {ckpt}")
     resumed = models[-1]
     if (resumed.begin_step, resumed.step) != (SAMPLE_CLI_STEPS, SAMPLE_CLI_STEPS):
         raise AssertionError(f"[{SAMPLE_CLI}] the val phase resumed at "
                              f"{(resumed.begin_step, resumed.step)}")
-    frames = 1 + len([t for t in range(SAMPLE_CLI_T) if t % (1 | (SAMPLE_CLI_T // 10)) == 0])
-    grid = (int(math.sqrt(frames)) * 128, math.ceil(frames / int(math.sqrt(frames))) * 128, 3)
     decoded_pngs(os.path.join(root, "train", "results"),
                  {f"{SAMPLE_CLI_STEPS}_sample.png": (128, 128, 3)})
     decoded_pngs(os.path.join(root, "val", "results"),
-                 {"0_sample_process.png": grid, "sample_0.png": (128, 128, 3)})
-    log(f"[{SAMPLE_CLI}] seconds per sample ({SAMPLE_CLI_T} ancestral steps, B=1): "
-        f"{samples}, peak memory {peak_gib:.2f} GiB, kernel launches {launches}; the val phase "
-        f"resumed step {resumed.step}; the PNGs decode")
+                 {"0_sample_process.png": process_frames(SAMPLE_CLI_T)[1],
+                  "sample_0.png": (128, 128, 3)})
+    log(f"[{SAMPLE_CLI}] kernel launches {launches}; the val phase resumed step "
+        f"{resumed.step}; the PNGs decode")
     del models, resumed
     torch.cuda.empty_cache()
     return {"config": "sample_ddpm_16.json", "n_timestep": SAMPLE_CLI_T,
-            "steps": SAMPLE_CLI_STEPS, "sample_seconds": samples, "peak_memory_gib": peak_gib,
-            "launches": launches}
+            "steps": SAMPLE_CLI_STEPS, "launches": launches}
 
 
 def check_color_correction():
@@ -3017,81 +2022,41 @@ def check_color_correction():
 
 
 def run_probe():
-    """The int8 probe's main path: the launch counts set to 0, the probe
-    run once, the exact counts read. Each case and dtype makes one eager
-    warm-up link and captures CHAIN links, which the Python counts see;
-    the card runs the warm-up link and the captured links once per input.
-    Both paths' int8 chains sum exactly, so their last links' sums must
-    agree exactly after CHAIN links."""
+    """The int8 probe's main path: the counts set to 0, the probe run once,
+    the exact counts read. Each case and dtype makes one eager warm-up
+    link and captures CHAIN links, which the Python counts see; the card
+    runs the warm-up link and the captured links once per input. Both
+    paths' int8 chains sum exactly, so their last links' sums must agree
+    exactly after CHAIN links."""
     import torch
 
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
     from hsi_dmgasr_tpu_torch.tools import microbench_int8 as mb
 
-    fc.LAUNCHES = 0
-    fa.LAUNCHES = 0
-    bd.LAUNCHES = 0
-    t0 = time.perf_counter()
+    zero_counts()
     rows = mb.probe(torch.device("cuda"))
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counted = {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES}
-    expected = {FUSED: 0, FLASH: 0, DOT: len(mb.CASES) * len(mb.DTYPES) * (1 + mb.CHAIN)}
-    if counted != expected:
-        raise AssertionError(f"[{PROBE}] {counted} counted launches, expected {expected}")
+    got = counted()[1]
+    want = {FUSED: 0, FLASH: 0, SPLIT: 0, UP2: 0,
+            DOT: len(mb.CASES) * len(mb.DTYPES) * (1 + mb.CHAIN)}
+    if got != want:
+        raise AssertionError(f"[{PROBE}] {got} counted launches, expected {want}")
     per_chain = 1 + mb.N_X * mb.CHAIN
     for r in rows:
         if r["launches"] != (per_chain if r["path"] == "cuda" else 0):
             raise AssertionError(f"[{PROBE}] {r['case']} {r['path']} {r['dtype']}: "
                                  f"{r['launches']} blocked-dot launches, expected {per_chain}")
-        log(f"[{PROBE}] {r['case']:<20} {r['path']:<7} {r['dtype']:<4} us/dot "
-            f"{r['us_per_dot']:8.3f} bound {r['bound_us']:.3f} TOP/s {r['achieved_TOPs']:7.2f} "
-            f"launches {r['launches']} sum {r['checksum']}")
     for name, *_ in mb.CASES:
         sums = {r["path"]: r["checksum"] for r in rows if r["case"] == name and r["dtype"] == "int8"}
         if sums["cuda"] != sums["library"]:
             raise AssertionError(f"[{PROBE}] {name} int8: kernel chain sum {sums['cuda']} != "
                                  f"library chain sum {sums['library']}")
-    launches = {FUSED: 0, FLASH: 0, DOT: sum(r["launches"] for r in rows)}
-    log(f"[{PROBE}] main path: {launches} kernel launches ({counted} counted in Python: "
-        f"warm-up and captured links), {secs:.1f} s")
-    return {"chain": mb.CHAIN, "seconds": secs, "launches": launches,
-            "counted_in_python": counted, "rows": rows}
+    launches = {**got, DOT: sum(r["launches"] for r in rows)}
+    log(f"[{PROBE}] {launches} kernel launches ({got} counted in Python: warm-up and captured "
+        "links); the int8 chains' sums equal the library's")
+    return {"chain": mb.CHAIN, "launches": launches, "counted_in_python": got, "rows": rows}
 
 
 # ------------------------------------------------------------ the baseline zoo
-
-
-def no_launches(name, launches, split=0):
-    """No kernel launched but ``split`` launches of the split attention
-    kernel (daq_refiners' post_unet: the router's count of its recorded
-    calls; 0 elsewhere)."""
-    if launches != {FUSED: 0, FLASH: 0, DOT: 0, UP2: 0, SPLIT: split}:
-        raise AssertionError(f"[{name}] launched {launches}, expected no kernel but {split} "
-                             "split attention launches")
-
-
-def kernel_counts():
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
-    from hsi_dmgasr_tpu_torch.kernels import split_attention as sa
-    from hsi_dmgasr_tpu_torch.kernels import up2_conv
-
-    return {FUSED: fc.LAUNCHES, FLASH: fa.LAUNCHES, DOT: bd.LAUNCHES,
-            UP2: up2_conv.LAUNCHES_BY_ROUTE["kernel"], SPLIT: sa.LAUNCHES}
-
-
-def zero_counts():
-    from hsi_dmgasr_tpu_torch.kernels import blocked_dot as bd
-    from hsi_dmgasr_tpu_torch.kernels import flash_attention as fa
-    from hsi_dmgasr_tpu_torch.kernels import fused_conv as fc
-
-    fc.LAUNCHES = fa.LAUNCHES = bd.LAUNCHES = 0
-    zero_up2()
-    zero_attention()
 
 
 def golden_on_card(name, model_cls, prefix="sd::", kind=None, kw=None, atol=2e-5, **select):
@@ -3136,10 +2101,8 @@ def grads_against_cpu(name, run, leaves):
     differs between the devices."""
     out = {}
     for dev in ("cpu", "cuda"):
-        t0 = time.perf_counter()
         loss, module = run(dev)
         out[dev] = (loss, {n: g.detach().double().cpu() for n, g in leaves(module).items()})
-        log(f"[{name}] the f64 step on {dev}: {time.perf_counter() - t0:.2f} s")
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out["cpu"], out["cuda"]
     floor = GRAD_NOISE * max(g.abs().max() for g in g_cpu.values())
     worst = max(((g_gpu[n] - g).abs().max() / g.abs().max().clamp_min(floor)).item()
@@ -3173,12 +2136,10 @@ def checked_metrics(name, scenes):
 
 
 def run_baselines(dirs):
-    """The baseline zoo as a user runs it (see BASELINES above). Counts: 0
-    before, none after. Per model: every step's loss finite, ms per train
-    step (synchronised, the host's data loading outside it) and the CLI's
-    seconds per step (with it), peak memory, seconds per test scene, the
-    test metrics finite, the golden on the card, one f64 step on the card
-    against the CPU's. Returns the report."""
+    """The baseline zoo as a user runs it (see BASELINES above). Per model:
+    every step's loss finite, the test metrics finite, the golden on the
+    card, one f64 step on the card against the CPU's; CEGATSR's forward
+    and its golden; no kernel launch. Returns the report."""
     import numpy as np
     import torch
 
@@ -3197,16 +2158,12 @@ def run_baselines(dirs):
     real_step = BaselineTrainer.train_step
     report = {"models": {}}
     zero_counts()
-    t_path = time.perf_counter()
     for name, scale in BASELINE_MODELS:
-        steps = []
+        losses = []
 
-        def timed_step(self, *a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
+        def recorded_step(self, *a, **kw):
             loss = real_step(self, *a, **kw)
-            torch.cuda.synchronize()
-            steps.append({"s": time.perf_counter() - t, "loss": float(loss)})
+            losses.append(float(loss))
             return loss
 
         out = os.path.join(root, name)
@@ -3214,42 +2171,26 @@ def run_baselines(dirs):
         argv = ["train", *common, "--data", dirs["mat"], "--max_steps", str(BASELINE_STEPS),
                 "--out", out]
         log(f"[{BASELINES}] python -m hsi_dmgasr_tpu_torch.cli.baselines {' '.join(argv)}")
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with mock.patch.object(BaselineTrainer, "train_step", timed_step):
+        with mock.patch.object(BaselineTrainer, "train_step", recorded_step):
             trainer = cli.main(argv)
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        losses = [st["loss"] for st in steps]
-        if len(steps) != BASELINE_STEPS or not all(map(math.isfinite, losses)):
-            raise AssertionError(f"[{BASELINES}] {name}: {len(steps)} steps, losses {losses}")
+        if len(losses) != BASELINE_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"[{BASELINES}] {name}: {len(losses)} steps, losses {losses}")
         scenes = []
 
         def recorded_qa(x_true, x_pred, *a, **k):
             scenes.append((x_true, x_pred, real_qa(x_true, x_pred, *a, **k)))
             return scenes[-1][2]
 
-        t0 = time.perf_counter()
         with mock.patch.object(cli, "quality_assessment", recorded_qa):
             qa = cli.main(["test", *common, "--data", test_dir, "--ckpt", out])
-        test_s = time.perf_counter() - t0
         qa = {k: float(v) for k, v in qa.items()}  # numpy scalars, for the JSON report
         if len(scenes) != 1:
             raise AssertionError(f"[{BASELINES}] {name} tested {len(scenes)} scenes")
         constant = checked_metrics(f"{BASELINES}:{name}", scenes)
-        rep = {"scale": scale, "losses": losses, "step_times": [st["s"] for st in steps],
-               "step_seconds": statistics.median(st["s"] for st in steps[1:]),
-               "cli_train_seconds": cli_s, "cli_seconds_per_step": cli_s / BASELINE_STEPS,
-               "peak_memory_gib": peak_gib,
-               "test_seconds_per_scene": test_s, "test": qa, "test_constant_bands": constant,
+        rep = {"scale": scale, "losses": losses, "test": qa, "test_constant_bands": constant,
                "params": sum(p.numel() for p in trainer.model.parameters())}
-        log(f"[{BASELINES}] {name} x{scale}: {rep['params']} params, losses {losses}; "
-            f"ms per train step (median of steps 2-{BASELINE_STEPS}, {BASELINE_BATCH} crops of "
-            f"{32 * scale}^2 x {c}) {rep['step_seconds'] * 1e3:.2f}; the CLI's train "
-            f"{cli_s:.2f} s (data on the host, the native resize, included; "
-            f"{cli_s / BASELINE_STEPS:.2f} s a step); peak memory {peak_gib:.2f} GiB; test "
-            f"{test_s:.3f} s a scene, {qa} ({constant[0]} constant bands)")
+        log(f"[{BASELINES}] {name} x{scale}: {rep['params']} params, losses {losses}; test {qa} "
+            f"({constant[0]} constant bands)")
 
         # one f64 step on the card against the CPU's, from the trained weights
         item = HSTestData(dirs["npy"], n_scale=scale, gt_size=8 * scale)[0]
@@ -3283,14 +2224,8 @@ def run_baselines(dirs):
     x = torch.rand((BASELINE_BATCH, 32, 32, c), generator=gen, device="cuda")
     lms = torch.nn.functional.interpolate(x.permute(0, 3, 1, 2), scale_factor=4,
                                           mode="bicubic").permute(0, 2, 3, 1)
-    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            y = model(x, lms)
-            torch.cuda.synchronize()
-    fwd_s = time.perf_counter() - t0
+        y = model(x, lms)
     if tuple(y.shape) != (BASELINE_BATCH, 128, 128, c) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"[{BASELINES}] cegatsr forward {tuple(y.shape)} or non-finite")
     item = HSTestData(dirs["npy"], n_scale=4, gt_size=32)[0]
@@ -3312,17 +2247,12 @@ def run_baselines(dirs):
         raise AssertionError(f"[{BASELINES}] cegatsr card vs CPU forward {cpu_vs_card}")
     kw, kind, atol = GOLDEN_WIDTHS["cegatsr"]
     report["models"]["cegatsr"] = {
-        "forward_seconds": fwd_s, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "card_vs_cpu_forward_f64": cpu_vs_card,
         "golden_max_abs_err": golden_on_card("cegatsr", pb.CEGATSR, kind=kind, kw=kw, atol=atol)}
-    log(f"[{BASELINES}] cegatsr (defaults: n_subs 8, n_ovls 2, out_feats 64, 3 blocks, x4): "
-        f"forward of {BASELINE_BATCH} x 32^2 x {c} in {fwd_s * 1e3:.2f} ms, peak memory "
-        f"{report['models']['cegatsr']['peak_memory_gib']:.2f} GiB; {report['models']['cegatsr']}")
+    log(f"[{BASELINES}] cegatsr (defaults: n_subs 8, n_ovls 2, out_feats 64, 3 blocks, x4) on "
+        f"{BASELINE_BATCH} x 32^2 x {c}: {report['models']['cegatsr']}")
     del model, x, lms, y
-    report["seconds"] = time.perf_counter() - t_path
-    report["launches"] = launches = kernel_counts()
-    no_launches(BASELINES, launches)
-    log(f"[{BASELINES}] {report['seconds']:.1f} s, kernel launches {launches}")
+    report["launches"] = no_launches(BASELINES)
     torch.cuda.empty_cache()
     return report
 
@@ -3343,14 +2273,12 @@ def make_gan_scenes(path):
 
 
 def run_gan3d():
-    """The 3-D GAN as a user trains it (see GAN3D above). Counts: 0 before,
-    none after. Checks every step's losses finite, both goldens on the card,
-    the checkpoint back bit for bit, and one D step then one G step on the
-    card against the CPU's in f64 (both losses, every gradient of both nets
+    """The 3-D GAN as a user trains it (see GAN3D above). Checks no kernel
+    launch, every step's losses finite, both goldens on the card, the
+    checkpoint back bit for bit, and one D step then one G step on the card
+    against the CPU's in f64 (both losses, every gradient of both nets
     within TOL_STEP_GRAD of its leaf's largest, D's running statistics
-    within TOL_STEP_STATS). Times each step (ms, synchronised) and reads
-    the peak memory. Returns the report."""
-    import numpy as np
+    within TOL_STEP_STATS). Returns the report."""
     import torch
 
     from hsi_dmgasr_tpu_torch.cli import gan_train
@@ -3363,45 +2291,29 @@ def run_gan3d():
     os.makedirs(root)
     data = make_gan_scenes(os.path.join(root, "scenes.npy"))
     out = os.path.join(root, "gan3d")
-    steps = []
+    losses = []
     real_step = GAN3DTrainer.train_step
 
-    def timed_step(self, *a, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
+    def recorded_step(self, *a, **kw):
         g_loss, d_loss = real_step(self, *a, **kw)
-        torch.cuda.synchronize()
-        steps.append({"s": time.perf_counter() - t, "g": float(g_loss), "d": float(d_loss)})
+        losses.append((float(g_loss), float(d_loss)))
         return g_loss, d_loss
 
     argv = ["--data", data, "--max_steps", str(GAN3D_STEPS), "--out", out]
     log(f"[{GAN3D}] python -m hsi_dmgasr_tpu_torch.cli.gan_train {' '.join(argv)}")
     zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with mock.patch.object(GAN3DTrainer, "train_step", timed_step):
+    with mock.patch.object(GAN3DTrainer, "train_step", recorded_step):
         trainer = gan_train.main(argv)
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = kernel_counts()
-    no_launches(GAN3D, launches)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    if len(steps) != GAN3D_STEPS or not all(math.isfinite(st[k]) for st in steps for k in "gd"):
-        raise AssertionError(f"[{GAN3D}] steps {steps}")
+    launches = no_launches(GAN3D)
+    if len(losses) != GAN3D_STEPS or not all(math.isfinite(v) for st in losses for v in st):
+        raise AssertionError(f"[{GAN3D}] steps (g, d) {losses}")
     fresh = GAN3DTrainer(seed=5, device="cuda")
     fresh.load(out)
     for a, b in ((trainer.G, fresh.G), (trainer.D, fresh.D)):
         if not all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items()):
             raise AssertionError(f"[{GAN3D}] {out} did not load back bit for bit")
-    report = {"cli": "cli.gan_train " + " ".join(argv), "launches": launches,
-              "step_times": [st["s"] for st in steps],
-              "step_seconds": statistics.median(st["s"] for st in steps[1:]),
-              "losses": [(st["g"], st["d"]) for st in steps], "cli_seconds": cli_s,
-              "peak_memory_gib": peak_gib}
-    log(f"[{GAN3D}] {GAN3D_STEPS} steps (g, d) {report['losses']}; ms per step (D then G, "
-        f"median of steps 2-{GAN3D_STEPS}, 4 tiles of 144^2 x 31) "
-        f"{report['step_seconds'] * 1e3:.2f}; the CLI {cli_s:.2f} s; peak memory "
-        f"{peak_gib:.2f} GiB; the checkpoint back bit for bit")
+    report = {"cli": "cli.gan_train " + " ".join(argv), "launches": launches, "losses": losses}
+    log(f"[{GAN3D}] {GAN3D_STEPS} steps (g, d) {losses}; the checkpoint back bit for bit")
 
     report["golden_max_abs_err"] = {
         "G": golden_on_card("gan3d:G", pb.GAN3DGenerator, "gsd::", kw={"n_bands": 31},
@@ -3412,7 +2324,7 @@ def run_gan3d():
     lr_cube, hr = ICVLTiles(data, s=4, fis=36)[0]
     g_sd = {k: v.detach().cpu() for k, v in trainer.G.state_dict().items()}
     d_sd = {k: v.detach().cpu() for k, v in trainer.D.state_dict().items()}
-    stats, losses = {}, {}
+    stats, g_losses = {}, {}
 
     def step(dev):
         """The D step's loss is returned (and held by grads_against_cpu); the
@@ -3423,7 +2335,7 @@ def run_gan3d():
         tr.G.double()
         tr.D.double()
         g_loss, d_loss = tr.train_step(lr_cube[None], hr[None])
-        losses[dev] = g_loss.item()
+        g_losses[dev] = g_loss.item()
         stats[dev] = {k: v.detach().double().cpu() for k, v in tr.D.state_dict().items()
                       if k.endswith(("running_mean", "running_var"))}
         return d_loss.item(), tr
@@ -3431,7 +2343,7 @@ def run_gan3d():
     res = grads_against_cpu(
         GAN3D, step, lambda tr: {**{f"G.{n}": p.grad for n, p in tr.G.named_parameters()},
                                  **{f"D.{n}": p.grad for n, p in tr.D.named_parameters()}})
-    res["g_loss_rel_err"] = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    res["g_loss_rel_err"] = abs(g_losses["cuda"] - g_losses["cpu"]) / abs(g_losses["cpu"])
     res["running_stats_worst_rel_err"] = max(
         ((stats["cuda"][k] - v).abs().max() / v.abs().max()).item()
         for k, v in stats["cpu"].items())
@@ -3449,39 +2361,19 @@ def run_gan3d():
 # ------------------------------------------------- DAQ quantization, refiners
 
 
-def timed_steps(step, n=5, warmup=2):
-    """Median milliseconds of ``step()`` (synchronised) after ``warmup``
-    calls, and the peak memory over all of them (GiB)."""
-    import torch
-
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(warmup + n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        if i >= warmup:
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), torch.cuda.max_memory_allocated() / 2 ** 30
-
-
 def run_daq_refiners():
     """daq_refiners (see DAQ above): for each module, its forward on the
     card (f32; the DAQ blocks on the first DAQ_HELD crops in f64, where no
     statistic lands on a rounding boundary by chance) against the CPU's,
-    one f64 step on the card against the CPU's (grads_against_cpu), and ms
-    per f32 train step (forward, backward of mean(y^2), Adam) with its
-    peak memory. Counts: 0 before; after, no kernel but the split attention
-    kernel, as often as the router sent the recorded attention calls there.
-    Returns the report."""
+    and one f64 step on the card against the CPU's (grads_against_cpu).
+    After: no kernel launched but the split attention kernel, as often as
+    the router sent the recorded attention calls there. Returns the report
+    and the recorded calls."""
     import torch
 
     from hsi_dmgasr_tpu_torch.models import refiners
     from hsi_dmgasr_tpu_torch.ops import quantize
 
-    zero_counts()
-    t_path = time.perf_counter()
     report = {}
     gen = torch.Generator().manual_seed(51)
 
@@ -3490,9 +2382,12 @@ def run_daq_refiners():
             torch.manual_seed(52)
             return ctor()
 
+    def codebook_loss(out):
+        z_q, _, loss = out
+        return z_q.sum() + loss
+
     def held(name, ctor, inputs, f64_inputs, out_of, train=False):
-        """The module's forward card vs CPU, its f64 step card vs CPU, its
-        f32 train step's ms and peak memory."""
+        """The module's forward card vs CPU and its f64 step card vs CPU."""
         model = seeded(ctor)
         sd = {k: v.clone() for k, v in model.state_dict().items()}
         dtype = torch.float64 if f64_inputs is not None else torch.float32
@@ -3522,32 +2417,14 @@ def run_daq_refiners():
 
         step_err = grads_against_cpu(f"{DAQ}:{name}", step,
                                      lambda m: {n: p.grad for n, p in m.named_parameters()})
-        m = seeded(ctor).cuda().train(train)
-        opt = torch.optim.Adam(m.parameters(), lr=1e-4)
-        x_card = tuple(a.cuda() for a in inputs)
-
-        def train_step():
-            opt.zero_grad(set_to_none=True)
-            y = m(*x_card)
-            loss = codebook_loss(y) if isinstance(m, refiners.Codebook) else out_of(y).pow(2).mean()
-            loss.backward()
-            opt.step()
-
-        ms, gib = timed_steps(train_step)
         report[name] = {"forward_card_vs_cpu": err, "forward_dtype": str(dtype),
-                        "card_vs_cpu_step": step_err, "ms_per_step": ms, "peak_memory_gib": gib,
-                        "input": [list(a.shape) for a in inputs]}
+                        "card_vs_cpu_step": step_err, "input": [list(a.shape) for a in inputs]}
         log(f"[{DAQ}] {name} on {[tuple(a.shape) for a in inputs]}: forward card vs CPU "
-            f"({dtype}) {err}; f64 step {step_err}; {ms:.2f} ms per f32 step (forward, backward, "
-            f"Adam), peak memory {gib:.2f} GiB")
-        del m, opt, x_card
+            f"({dtype}) {err}; f64 step {step_err}")
         torch.cuda.empty_cache()
 
-    def codebook_loss(out):
-        z_q, _, loss = out
-        return z_q.sum() + loss
-
-    with attention_recording():
+    zero_counts()
+    with recording() as calls:
         crops = torch.randn((DAQ_CROPS, DAQ_HW, DAQ_HW, DAQ_FEATS), generator=gen)
         for bits in DAQ_BITS:
             for kind, ctor in (("ResBlockDAQ", quantize.ResBlockDAQ),
@@ -3572,12 +2449,10 @@ def run_daq_refiners():
             raise AssertionError(f"[{DAQ}] Codebook indices differ card vs CPU")
         held("Codebook", lambda: refiners.Codebook(4096, 512), (z,), (z,), lambda y: y[0])
         report["Codebook"]["indices_equal_f64"] = True
-    report["seconds"] = time.perf_counter() - t_path
-    report["launches"] = launches = kernel_counts()
-    routes, SPLIT_SIGS[DAQ] = attention_routes(DAQ)
-    no_launches(DAQ, launches, routes["split"])
-    log(f"[{DAQ}] {report['seconds']:.1f} s, kernel launches {launches}")
-    return report
+    routes = check_routes(DAQ, calls)
+    report["launches"] = no_launches(DAQ, routes["split"])
+    log(f"[{DAQ}] attention routes {routes}, kernel launches {report['launches']}")
+    return report, calls
 
 
 # ---------------------------------------------------- data-parallel ranks
@@ -3585,19 +2460,16 @@ def run_daq_refiners():
 
 def r3_dp_rank(rank, device, weights, seed):
     """One rank of pavia_x4_r3_dp: the r3 pipeline on the parent's weights
-    with a 'data' mesh over the two ranks, the counts set to 0, one cube
-    super-resolved (9 latents wrap-padded to 10, this rank's 5) while its
-    launch signatures are recorded and the gathered latent is caught at the
-    decode. Returns the counts, signatures, bytes gathered, peak memory,
-    seconds and latent."""
+    with a 'data' mesh over the two ranks, one counted cube (9 latents
+    wrap-padded to 10, this rank's 5), the gathered latent caught at the
+    decode. Returns its launches, calls, bytes gathered and latent."""
     import torch
 
     from hsi_dmgasr_tpu_torch.device import use_f32_policy
 
     use_f32_policy()
     torch.cuda.set_device(device)
-    config, diffusion, _ = PATHS[R3]
-    pipe = build_pipeline(config, diffusion, n_devices=2)
+    pipe = build_pipeline(FORWARDS[R3_DP][0], DIFFUSION[R3], n_devices=2)
     mesh = pipe.ddpm.mesh
     state = torch.load(weights, map_location=device)
     pipe.gae.load_state_dict(state["gae"])
@@ -3605,45 +2477,32 @@ def r3_dp_rank(rank, device, weights, seed):
     cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0),
                       device="cuda")
     with mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
-        out, secs, peak_gib, launches, fused_calls, flash_calls, up2_calls = counted_run(
-            f"{R3_DP}:rank{rank}", R3_DP_PER_RANK,
-            lambda: pipe.super_resolve(cube, generator=torch.Generator(
-                device="cuda").manual_seed(seed)))
+        out, calls, launches = counted_run(
+            f"{R3_DP}:rank{rank}", lambda: pipe.super_resolve(cube, generator=torch.Generator(
+                device="cuda").manual_seed(seed)), R3_DP)
     check_cube(R3_DP, out, CUBE)
-    # one more cube, timed: the counted one also paid each launch's first call
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipe.super_resolve(cube, generator=torch.Generator(device="cuda").manual_seed(seed + 1))
-    torch.cuda.synchronize()
-    timed = time.perf_counter() - t0
-    batches = sorted({sig[0][0] for sig in fused_calls})
+    batches = sorted({sig[0][0] for sig in calls[FUSED]})
     if batches != [5]:
         raise AssertionError(f"[{R3_DP}] rank {rank} launched at batch sizes {batches}, "
                              "expected 5 (9 latents wrap-padded to 10 over 2 ranks)")
-    return {"mesh": mesh.n_data, "launches": launches, "fused_calls": fused_calls,
-            "flash_calls": flash_calls, "up2_calls": up2_calls,
-            "split_calls": SPLIT_SIGS[f"{R3_DP}:rank{rank}"],
-            "gathered_bytes": dict(mesh.gathered),
-            "peak_memory_gib": peak_gib, "counted_seconds": secs, "seconds": timed,
-            "latent": decode.call_args[0][0].cpu()}
+    return {"mesh": mesh.n_data, "launches": launches, "calls": calls,
+            "gathered_bytes": dict(mesh.gathered), "latent": decode.call_args[0][0].cpu()}
 
 
 def run_r3_dp():
     """pavia_x4_r3_dp: the r3 pipeline's single-process cube (its latent
     caught at the decode), its weights saved; then two ranks on the one card
     (multihost.launch over gloo, a file:// store), each checked for its
-    counts (220 fused launches at B=5); the ranks' gathered latents equal;
-    the data-parallel latent against the single-process one within
-    TOL_UNET (the divergence reported). Returns its report and its ranks'
-    launch signatures, summed."""
+    counts; the ranks' gathered latents equal; the data-parallel latent
+    against the single-process one within TOL_UNET. Returns its report and
+    its ranks' calls, summed."""
     import tempfile
 
     import torch
 
     from hsi_dmgasr_tpu_torch.parallel import multihost
 
-    config, diffusion, _ = PATHS[R3]
-    pipe = build_pipeline(config, diffusion)
+    pipe = build_pipeline(FORWARDS[R3_DP][0], DIFFUSION[R3])
     cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0),
                       device="cuda")
     with mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
@@ -3656,42 +2515,24 @@ def run_r3_dp():
     del pipe, cube
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
     store = tempfile.mkdtemp(prefix="store-", dir=work)
     ranks = multihost.launch(r3_dp_rank, 2, f"file://{store}/rendezvous",
                              args=(weights, R3_DP_SEED))
     shutil.rmtree(store, ignore_errors=True)
-    secs = time.perf_counter() - t0
     if [r["mesh"] for r in ranks] != [2, 2]:
         raise AssertionError(f"[{R3_DP}] the ranks' meshes: {[r['mesh'] for r in ranks]}")
     latents_equal = torch.equal(ranks[0]["latent"], ranks[1]["latent"])
     err = divergence(ranks[0]["latent"], single)
-    log(f"[{R3_DP}] ({TWO_RANKS}) the ranks' gathered latents equal: {latents_equal}; the "
-        f"data-parallel latent vs the single process's from the same draws: {err} (TOL_UNET "
-        f"{TOL_UNET})")
+    log(f"[{R3_DP}] the ranks' gathered latents equal: {latents_equal}; the data-parallel "
+        f"latent vs the single process's from the same draws: {err} (TOL_UNET {TOL_UNET})")
     if not latents_equal or not within(ranks[0]["latent"], single, TOL_UNET):
         raise AssertionError(f"[{R3_DP}] latents equal {latents_equal}, vs single {err}")
-    fused_calls, flash_calls, up2_calls = {}, {}, {}
-    for r in ranks:
-        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"]),
-                            (up2_calls, r["up2_calls"])):
-            for sig, n in calls.items():
-                mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2, SPLIT)}
-    SPLIT_SIGS[R3_DP] = merged_split(ranks)
-    report = {"config": config, "note": TWO_RANKS, "launches": launches,
+    report = {"launches": {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]},
               "launches_per_rank": [r["launches"] for r in ranks],
-              "cube_seconds": [r["seconds"] for r in ranks],
-              "counted_cube_seconds": [r["counted_seconds"] for r in ranks],
-              "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
               "gathered_bytes_per_cube": [r["gathered_bytes"] for r in ranks],
-              "dp_vs_single": err, "ranks_seconds": secs}
-    log(f"[{R3_DP}] ({TWO_RANKS}) cube seconds per rank {report['cube_seconds']} (the counted "
-        f"cube {report['counted_cube_seconds']}); peak memory "
-        f"per rank {[round(g, 2) for g in report['peak_memory_gib']]} GiB; bytes gathered "
-        f"{report['gathered_bytes_per_cube']}; launches per rank {report['launches_per_rank']}; "
-        f"the ranks took {secs:.1f} s in all")
-    return report, fused_calls, flash_calls, up2_calls
+              "dp_vs_single": err}
+    log(f"[{R3_DP}] bytes gathered {report['gathered_bytes_per_cube']}")
+    return report, merged([r["calls"] for r in ranks])
 
 
 def _state_digest(tensors):
@@ -3717,9 +2558,9 @@ def train_state(ddpm):
 
 def train_dp_steps(opt, state, hr_seed, device):
     """TRAIN_DP_STEPS steps of the train_r3 pipeline from ``state`` (weights
-    and the GAE), each on TRAIN_DP_CROPS HR crops drawn from ``hr_seed``,
-    timed (synchronised). Returns the pipeline, losses, step times and the
-    first step's gradients (on the CPU)."""
+    and the GAE), each on TRAIN_DP_CROPS HR crops drawn from ``hr_seed``.
+    Returns the pipeline, losses and the first step's gradients (on the
+    CPU)."""
     import torch
 
     from hsi_dmgasr_tpu_torch.train import stage2_driver as drv
@@ -3728,27 +2569,22 @@ def train_dp_steps(opt, state, hr_seed, device):
     pipe.ddpm.unet.load_state_dict(state)
     gen = torch.Generator(device="cuda").manual_seed(hr_seed)
     size = opt["datasets"]["train"]["l_resolution"] * opt["scale"]
-    losses, times, grads = [], [], None
-    torch.cuda.reset_peak_memory_stats()
+    losses, grads = [], None
     for _ in range(TRAIN_DP_STEPS):
         hr = torch.rand((TRAIN_DP_CROPS, size, size, GAE_CFG["n_colors"]), generator=gen,
                         device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         losses.append(float(pipe.train_step_from_hr(hr, scale=opt["scale"])))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         if grads is None:  # the step leaves its (all-reduced) gradients in place
             grads = {n: p.grad.detach().cpu() for n, p in pipe.ddpm.unet.named_parameters()}
-    return pipe, losses, times, grads
+    return pipe, losses, grads
 
 
 def train_dp_rank(rank, device, opt, weights, one_rank):
     """One rank of train_r3_dp: TRAIN_DP_STEPS steps from the parent's
     weights with a 'data' mesh over the two ranks (18 of the 36 latents a
     step), then its state against the one-rank run's (rank 0) and its
-    digest, and one validation cube under the fused Blocks (its 9 latents
-    padded to 10, B=5 a rank) with its launches counted."""
+    digest, and one counted validation cube under the fused Blocks (its 9
+    latents padded to 10, B=5 a rank)."""
     import torch
 
     from hsi_dmgasr_tpu_torch.device import use_f32_policy
@@ -3757,11 +2593,10 @@ def train_dp_rank(rank, device, opt, weights, one_rank):
     use_f32_policy()
     torch.cuda.set_device(device)
     zero_counts()
-    pipe, losses, times, grads = train_dp_steps(opt, torch.load(weights, map_location=device),
-                                                TRAIN_DP_SEED, device)
+    pipe, losses, grads = train_dp_steps(opt, torch.load(weights, map_location=device),
+                                         TRAIN_DP_SEED, device)
     ddpm = pipe.ddpm
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    train_launches = kernel_counts()
+    no_launches(f"{TRAIN_DP} steps")
     state = train_state(ddpm)
     worst = {}
     if rank == 0:
@@ -3796,18 +2631,14 @@ def train_dp_rank(rank, device, opt, weights, one_rank):
     del state
     val = torch.rand((1, VAL_HW, VAL_HW, GAE_CFG["n_colors"]),
                      generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
-    synchronize()  # rank 0 compared its state first: start the timed cube together
+    synchronize()  # rank 0 compared its state first: start the cube together
     with mock.patch.object(pipe, "decode", wraps=pipe.decode) as decode:
-        out, secs, _, launches, fused_calls, flash_calls, up2_calls = counted_run(
-            f"{TRAIN_DP}:rank{rank}", TRAIN_DP_VAL_PER_RANK,
-            lambda: pipe.super_resolve(val, generator=torch.Generator(
-                device="cuda").manual_seed(6)))
+        out, calls, launches = counted_run(
+            f"{TRAIN_DP}:rank{rank}", lambda: pipe.super_resolve(val, generator=torch.Generator(
+                device="cuda").manual_seed(6)), TRAIN_DP)
     check_cube(TRAIN_DP, out, tuple(val.shape))
-    return {"mesh": ddpm.mesh.n_data, "losses": losses, "times": times, "peak_memory_gib": peak_gib,
-            "train_launches": train_launches, "worst_leaf_rel_err": worst, "digest": digest,
-            "reduced_bytes": reduced, "val_launches": launches, "val_seconds": secs,
-            "fused_calls": fused_calls, "flash_calls": flash_calls, "up2_calls": up2_calls,
-            "split_calls": SPLIT_SIGS[f"{TRAIN_DP}:rank{rank}"],
+    return {"mesh": ddpm.mesh.n_data, "losses": losses, "worst_leaf_rel_err": worst,
+            "digest": digest, "reduced_bytes": reduced, "launches": launches, "calls": calls,
             "val_latent": decode.call_args[0][0].cpu()}
 
 
@@ -3818,8 +2649,8 @@ def run_train_r3_dp(dirs, gae_ckpt):
     weights and draws: rank 0's first gradients and state against the
     one-rank run's (the gates under TRAIN_DP above), the ranks' states
     bit for bit alike (digests), no kernel launch in the steps, and each
-    rank's validation cube with its launches. Returns its report and the
-    validation's launch signatures, summed over the ranks."""
+    rank's counted validation cube. Returns its report and the
+    validation's calls, summed over the ranks."""
     import tempfile
 
     import torch
@@ -3834,99 +2665,100 @@ def run_train_r3_dp(dirs, gae_ckpt):
     weights = os.path.join(work, "weights.pt")
     init = DDPMModel(opt, seed=3, device="cuda").unet.state_dict()
     torch.save(init, weights)
-    pipe, losses, times, grads = train_dp_steps(opt, init, TRAIN_DP_SEED, "cuda")
-    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pipe, losses, grads = train_dp_steps(opt, init, TRAIN_DP_SEED, "cuda")
     one_rank = os.path.join(work, "one_rank.pt")
     torch.save({**{k: v.detach().cpu() for k, v in train_state(pipe.ddpm).items()},
                 **{f"grad.{n}": g for n, g in grads.items()}}, one_rank)
-    del grads
-    one_ms = statistics.median(times[1:]) * 1e3
-    log(f"[{TRAIN_DP}] one rank: losses {losses}, ms per step {[round(t * 1e3, 2) for t in times]}")
-    del pipe, init
+    log(f"[{TRAIN_DP}] one rank: losses {losses}")
+    del pipe, init, grads
     torch.cuda.empty_cache()
 
     opt2 = copy.deepcopy(opt)
     opt2["n_devices"] = 2
-    t0 = time.perf_counter()
     store = tempfile.mkdtemp(prefix="store-", dir=work)
     ranks = multihost.launch(train_dp_rank, 2, f"file://{store}/rendezvous",
                              args=(opt2, weights, one_rank))
     shutil.rmtree(store, ignore_errors=True)
-    secs = time.perf_counter() - t0
     for f in (weights, one_rank):
         os.remove(f)
     if [r["mesh"] for r in ranks] != [2, 2]:
         raise AssertionError(f"[{TRAIN_DP}] the ranks' meshes: {[r['mesh'] for r in ranks]}")
-    for r in ranks:
-        no_launches(f"{TRAIN_DP} steps", r["train_launches"])
     alike = ranks[0]["digest"] == ranks[1]["digest"] and ranks[0]["losses"] == ranks[1]["losses"]
     worst = ranks[0]["worst_leaf_rel_err"]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], losses))
     val_equal = torch.equal(ranks[0]["val_latent"], ranks[1]["val_latent"])
-    log(f"[{TRAIN_DP}] ({TWO_RANKS}) the ranks' weights, EMA and Adam state bit for bit alike: "
-        f"{alike}; rank 0 vs the one-rank run, worst leaf over its largest |value|: {worst}; "
-        f"losses {ranks[0]['losses']} vs {losses} (worst rel {loss_err:.2e}); validation "
-        f"latents alike: {val_equal}")
+    log(f"[{TRAIN_DP}] the ranks' weights, EMA and Adam state bit for bit alike: {alike}; "
+        f"rank 0 vs the one-rank run, worst leaf over its largest |value|: {worst}; losses "
+        f"{ranks[0]['losses']} vs {losses} (worst rel {loss_err:.2e}); validation latents "
+        f"alike: {val_equal}")
     off = (worst["grad_max_abs_over_max_g"] > TOL_STEP_GRAD
            or worst["unet_share_off"] > TRAIN_DP_SHARE_OFF or worst["adam"] > TOL_TRAIN_DP_ADAM)
     if not alike or not val_equal or off or loss_err > TOL_STEP_LOSS:
         raise AssertionError(f"[{TRAIN_DP}] alike {alike}, val {val_equal}, worst {worst}, "
                              f"loss {loss_err}")
-    fused_calls, flash_calls, up2_calls = {}, {}, {}
-    for r in ranks:
-        for mine, calls in ((fused_calls, r["fused_calls"]), (flash_calls, r["flash_calls"]),
-                            (up2_calls, r["up2_calls"])):
-            for sig, n in calls.items():
-                mine[sig] = mine.get(sig, 0) + n
-    launches = {k: sum(r["val_launches"][k] for r in ranks) for k in (FUSED, FLASH, UP2, SPLIT)}
-    SPLIT_SIGS[TRAIN_DP] = merged_split(ranks)
-    step_ms = [statistics.median(r["times"][1:]) * 1e3 for r in ranks]
     reduced = [r["reduced_bytes"].get("gradients", 0) / TRAIN_DP_STEPS for r in ranks]
-    report = {"note": TWO_RANKS, "steps": TRAIN_DP_STEPS, "latents_per_step": TRAIN_DP_CROPS * 9,
-              "ms_per_step": step_ms, "one_rank_ms_per_step": one_ms,
-              "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
-              "one_rank_peak_memory_gib": one_peak,
+    report = {"steps": TRAIN_DP_STEPS, "latents_per_step": TRAIN_DP_CROPS * 9,
               "allreduced_bytes_per_step": reduced, "worst_leaf_rel_err": worst,
-              "loss_rel_err": loss_err, "launches": launches,
-              "val_seconds": [r["val_seconds"] for r in ranks], "ranks_seconds": secs}
-    log(f"[{TRAIN_DP}] ({TWO_RANKS}) ms per step per rank (median of steps 2-{TRAIN_DP_STEPS}) "
-        f"{[round(m, 2) for m in step_ms]} against one rank's {one_ms:.2f}; peak memory per rank "
-        f"{[round(g, 2) for g in report['peak_memory_gib']]} GiB (one rank {one_peak:.2f}); bytes "
-        f"all-reduced a step per rank {reduced}; validation launches {launches}; the ranks took "
-        f"{secs:.1f} s in all")
-    return report, fused_calls, flash_calls, up2_calls
+              "loss_rel_err": loss_err,
+              "launches": {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}}
+    log(f"[{TRAIN_DP}] bytes all-reduced a step per rank {reduced}")
+    return report, merged([r["calls"] for r in ranks])
+
+
+# ------------------------------------------------------------ the kernels
+
+
+def signatures(runs, kind):
+    """{signature: {path: calls}} of one kind of recorded call over the
+    paths' runs."""
+    sigs = {}
+    for path, (_, calls) in runs.items():
+        for sig, n in calls[kind].items():
+            sigs.setdefault(sig, {})[path] = n
+    return sigs
+
+
+def split_signatures(runs):
+    """{(shape, dtype name): {path: calls}} of the recorded attention calls
+    on the split kernel's route."""
+    sigs = {}
+    for path, (_, calls) in runs.items():
+        for call, n in calls[ATTENTION].items():
+            if call_route(call) == "split":
+                paths = sigs.setdefault((call[0], dtype_name(call[1])), {})
+                paths[path] = paths.get(path, 0) + n
+    return sigs
+
+
+def kernel_rows(name, check, sigs, seed):
+    """``check(sig, seed)`` at each signature, logged; each row with its
+    calls by path."""
+    import torch
+
+    rows = []
+    for i, (sig, paths) in enumerate(sigs.items()):
+        row = check(sig, seed + i)
+        row["calls"] = paths
+        rows.append(row)
+        times = " ".join(f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_ms"))
+        log(f"{name} {row['signature']:<44} {sum(paths.values())} calls, vs plain "
+            f"{row['errors']['out']['max_abs']:.2e} | {times}")
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_entry(name, source, replaces, rows, launches):
-    """The kernels-line entry: times summed over the counted main-path
-    runs (launches of each signature x time per launch), per path too.
-    ``launches`` maps each path that runs the kernel to its count."""
-    paths = {}
-    for path in launches:
-        n = {k: sum(r["counts"].get(path, 0) * r[k] for r in rows)
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        paths[path] = dict(launches=launches[path], **n)
-    total = {k: sum(p[k] for p in paths.values())
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    by_bytes = sum(r["bound_ms"] * sum(r["counts"].values())
-                   for r in rows if r["bound_by"] == "bytes")
+    """The kernels-line entry: the kernel's launches by path and its
+    device time alone at each signature checked."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(launches.values()),
+            "launches": sum(launches.values()), "paths": launches,
             "max_abs_err": max(r["errors"]["out"]["max_abs"] for r in rows),
-            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
-            "library_ms": total["library_ms"], "paths": paths}
+            "signatures": {r["signature"]: {k: v for k, v in r.items() if k.endswith("_ms")}
+                           for r in rows}}
 
 
 def main():
-    import argparse
-
     import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace one cube per path and break its time down")
-    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3941,187 +2773,95 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     use_f32_policy()
-    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "paths": {}}
     os.makedirs(OUT_DIR, exist_ok=True)
 
-    # ---- 2. build
-    t0 = time.perf_counter()
+    # ---- 1. build
     libs = build.build_all()
-    report["build_s"] = time.perf_counter() - t0
-    log(f"build: {report['build_s']:.1f} s for {sorted(libs)}")
+    log(f"built {sorted(libs)}")
     for name, (secs, out) in build.BUILD_LOG.items():
         log(f"nvcc {name}: {secs:.1f} s")
         log("\n".join(line for line in out.splitlines() if "registers" in line or "spill" in line))
 
-    # ---- 3. the main paths
+    # ---- 2. the paths
     cube = torch.rand(CUBE, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    report["paths"] = {}
-    runs = {path: run_path(path, config, diffusion, expected, cube, args.profile)
-            for path, (config, diffusion, expected) in PATHS.items()}
-    log(f"[{R3_DDIM}] cube seconds {runs[R3_DDIM][0]['cube_seconds']:.4f} beside "
-        f"{R3}'s {runs[R3][0]['cube_seconds']:.4f} (4 UNet forwards each)")
+    runs = {path: run_path(path, cube) for path in DIFFUSION}
     del cube
     torch.cuda.empty_cache()
     runs[SPATIAL] = run_spatial()
     runs[R3_DP] = run_r3_dp()
-    runs.update(run_bench(args.profile))
+    runs.update(run_bench())
     dirs = make_train_data(os.path.join(ROOT, "build", "scenes"))
-    report["paths"][TRAIN_GAE], gae_ckpt = run_train_gae(args.profile, dirs)
-    runs[TRAIN] = run_train(args.profile, dirs, gae_ckpt)
+    report["paths"][TRAIN_GAE], gae_ckpt = run_train_gae(dirs)
+    runs[TRAIN] = run_train(dirs, gae_ckpt)
     torch.cuda.empty_cache()
     runs[TRAIN_DP] = run_train_r3_dp(dirs, gae_ckpt)
-    report["paths"][SAMPLE] = run_sample(args.profile)
+    report["paths"][SAMPLE] = run_sample()
     faces = make_faces(os.path.join(ROOT, "build", "faces"))
-    runs[INFER] = run_infer(args.profile, faces)
+    runs[INFER] = run_infer(faces)
     report["paths"][SAMPLE_CLI] = run_sample_cli(faces)
-    # the memory modes run after every other path, so that those paths'
-    # peak-memory readings do not depend on the large B=36 and tiled
-    # allocations before them
+    # the memory modes' large B=36 and tiled allocations after the others
     torch.cuda.empty_cache()
     runs.update(run_chunked())
     runs[TILED] = run_tiled()
-    report["paths"][REMAT] = run_train_remat(dirs, gae_ckpt, runs[TRAIN][0])
+    report["paths"][REMAT] = run_train_remat(dirs, gae_ckpt)
     torch.cuda.empty_cache()
     report["paths"][BASELINES] = run_baselines(dirs)
     report["paths"][GAN3D] = run_gan3d()
     torch.cuda.empty_cache()
-    report["paths"][DAQ] = run_daq_refiners()
+    runs[DAQ] = run_daq_refiners()
     report["color_correction_max_abs"] = check_color_correction()
-    fused_sigs, flash_sigs, up2_sigs = {}, {}, {}
-    for path, (path_report, fused_calls, flash_calls, up2_calls) in runs.items():
-        report["paths"][path] = path_report
-        for sigs, calls in ((fused_sigs, fused_calls), (flash_sigs, flash_calls),
-                            (up2_sigs, up2_calls)):
-            for sig, n in calls.items():
-                sigs.setdefault(sig, dict.fromkeys(UNET_PATHS, 0))[path] = n
     report["paths"][PROBE] = probe = run_probe()
-    split_sigs = {}
-    for path in SPLIT_PATHS:
-        for sig, n in SPLIT_SIGS.get(path, {}).items():
-            split_sigs.setdefault(sig, dict.fromkeys(SPLIT_PATHS, 0))[path] = n
+    for path, (path_report, _) in runs.items():
+        report["paths"][path] = path_report
 
-    # ---- 4. each kernel vs its plain version, and timings, per signature
-    fused_rows = []
-    for i, (sig, counts) in enumerate(sorted(fused_sigs.items(), key=lambda kv: -kv[0][0][1])):
-        row = check_signature(sig, seed=100 + i)
-        row["counts"] = counts
-        fused_rows.append(row)
-        e = row["errors"]
-        log(f"{row['signature']:<48} {counts} " + " ".join(
-            f"{k} abs {v['max_abs']:.2e} rel {v['max_rel']:.2e}" for k, v in e.items())
-            + f" | ms {row['ms']:.3f} kernel alone {row['kernel_ms']:.3f} plain "
-            f"{row['plain_ms']:.3f} cudnn {row['library_ms']:.3f} bound {row['bound_ms']:.3f} "
-            f"({row['bound_by']}) of bound {row['bound_frac']:.3f} (kernel alone "
-            f"{row['kernel_bound_frac']:.3f}) x cudnn {row['vs_library']:.2f}")
-        torch.cuda.empty_cache()
-    flash_rows = []
-    extra = [((shape, dt), dict.fromkeys(UNET_PATHS, 0)) for dt in ("f32", "bf16")
-             for shape in FLASH_EXTRA + tuple(shape for shape, _ in flash_sigs)]
-    extra = [e for e in extra if e[0] not in flash_sigs]
-    flash_all = list(flash_sigs.items()) + extra
-    torch.cuda.empty_cache()
-    for i, (sig, counts) in enumerate(flash_all):
-        row = check_flash(sig, 200 + i)
-        row["counts"] = counts
-        flash_rows.append(row)
-        err = row["errors"]["out"]
-        log(f"flash {row['signature']:<30} {counts} abs {err['max_abs']:.2e} rel "
-            f"{err['max_rel']:.2e} | ms {row['ms']:.3f} ({row['tflops']:.1f} TFLOP/s; prepass "
-            f"{row['prepass_ms']:.3f} ms, {row['prepass_share']:.3f} of it; attention kernel "
-            f"{row['attention_kernel_ms']:.3f}) plain "
-            f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
-            f"einsum {row['einsum_ms']:.3f} bound {row['bound_ms']:.3f} ({row['bound_by']})")
-        torch.cuda.empty_cache()
-    split_rows = []
-    for i, (sig, counts) in enumerate(sorted(split_sigs.items(), key=lambda kv: kv[0][0])):
-        row = check_split(sig, 400 + i)
-        row["counts"] = counts
-        split_rows.append(row)
-        err = row["errors"]["out"]
-        log(f"split {row['signature']:<30} {counts} abs {err['max_abs']:.2e} ({err['of_bound']:.2e} "
-            f"of (1 + 2A) W) | ms {row['ms']:.3f} ({row['tflops']:.1f} TFLOP/s counted once; split "
-            f"{row['split_ms']:.3f}, logits {row['logits_ms']:.3f}, p.v {row['pv_ms']:.3f}) plain "
-            f"{row['plain_ms']:.3f} einsum {row['einsum_ms']:.3f} bound {row['bound_ms']:.3f} "
-            f"({row['bound_by']})")
-        torch.cuda.empty_cache()
-    dot_rows = []
-    for i, (case, dt) in enumerate((c, dt) for c in mb.CASES for dt in ("int8", "bf16")):
-        row = check_dot(case, dt, seed=300 + i)
-        chains = {r["path"]: r for r in probe["rows"] if r["case"] == case[0] and r["dtype"] == dt}
-        row["counts"] = {PROBE: chains["cuda"]["launches"]}
-        row["chain_us_per_dot"] = {p: r["us_per_dot"] for p, r in chains.items()}
-        dot_rows.append(row)
-        err = row["errors"]["out"]
-        log(f"dot {row['signature']:<40} abs {err['max_abs']:.2e} rel {err['max_rel']:.2e} | us "
-            f"{row['ms'] * 1e3:.3f} plain {row['plain_ms'] * 1e3:.3f} library "
-            f"{row['library_ms'] * 1e3:.3f} bound {row['bound_ms'] * 1e3:.3f} ({row['bound_by']}) "
-            f"of bound {row['bound_frac']:.3f} TOP/s {row['tops']:.1f} x library "
-            f"{row['vs_library']:.2f} | chain us/dot {row['chain_us_per_dot']}")
-    up2 = up2_rows(up2_sigs)
-    report["fused_signatures"], report["flash_signatures"] = fused_rows, flash_rows
-    report["dot_signatures"], report["up2_signatures"] = dot_rows, up2
-    report["split_signatures"] = split_rows
-    for path in UNET_PATHS:
-        levels = {}
-        for r in fused_rows:
-            n = r["counts"][path]
-            if not n:
-                continue
-            lv = levels.setdefault(r["level"], dict.fromkeys(
-                ("launches", "ms", "kernel_ms", "bound_ms", "plain_ms", "library_ms"), 0))
-            lv["launches"] += n
-            for key in ("ms", "kernel_ms", "bound_ms", "plain_ms", "library_ms"):
-                lv[key] += r[key] * n
-        report["paths"][path]["fused_levels"] = levels
-        for name, lv in levels.items():
-            lv["bound_frac"] = lv["bound_ms"] / lv["ms"]
-            lv["vs_library"] = lv["ms"] / lv["library_ms"]
-            log(f"[{path}] fused per counted run at {name}: {lv['launches']} launches, kernel "
-                f"{lv['ms']:.3f} ms (alone {lv['kernel_ms']:.3f}), bound {lv['bound_ms']:.3f}, "
-                f"plain {lv['plain_ms']:.3f}, cudnn {lv['library_ms']:.3f}, of bound "
-                f"{lv['bound_frac']:.3f}, x cudnn {lv['vs_library']:.2f}")
+    # ---- 3. each kernel against its plain version, and its time alone
+    report["fused_signatures"] = kernel_rows(FUSED, check_signature, dict(sorted(
+        signatures(runs, FUSED).items(), key=lambda kv: -kv[0][0][1])), 100)
+    flash_sigs = signatures(runs, FLASH)
+    shapes = FLASH_EXTRA + tuple(shape for shape, _ in flash_sigs)
+    for sig in ((shape, dt) for dt in ("f32", "bf16") for shape in shapes):
+        flash_sigs.setdefault(sig, {})
+    report["flash_signatures"] = kernel_rows(FLASH, check_flash, flash_sigs, 200)
+    report["split_signatures"] = kernel_rows(SPLIT, check_split, dict(sorted(
+        split_signatures(runs).items())), 400)
+    report["up2_signatures"] = kernel_rows(UP2, check_up2, dict(sorted(
+        ((sig, paths) for sig, paths in signatures(runs, UP2).items() if sig[-1] == "f32"),
+        key=lambda kv: kv[0][0][:2])), 500)
+    chains = {(r["case"], r["dtype"]): r["launches"] for r in probe["rows"] if r["path"] == "cuda"}
+    report["dot_signatures"] = kernel_rows(DOT, lambda cd, seed: check_dot(*cd, seed), {
+        (case, dt): {PROBE: chains[case[0], dt]} for case in mb.CASES for dt in ("int8", "bf16")},
+        300)
 
-    # ---- 5. golden
+    # ---- 4. golden
     report["golden_max_abs"] = golden_check()
     log(f"golden sr3 UNet on the card: max abs err {report['golden_max_abs']:.2e}")
 
-    # ---- 6. results
-    def launches(kernel):
-        return {p: report["paths"][p]["launches"][kernel] for p in (*UNET_PATHS, *ZOO_PATHS)}
+    # ---- 5. results
+    def launches(kernel, paths=(*FORWARDS, *ZOO_PATHS)):
+        return {p: report["paths"][p]["launches"][kernel] for p in paths}
 
     entries = [
         kernel_entry(FUSED, "hsi_dmgasr_tpu_torch/csrc/fused_conv.cu",
-                     "hsi_dmgasr_tpu/kernels/fused_conv.py:824", fused_rows, launches(FUSED)),
+                     "hsi_dmgasr_tpu/kernels/fused_conv.py:824", report["fused_signatures"],
+                     launches(FUSED)),
         kernel_entry(FLASH, "hsi_dmgasr_tpu_torch/csrc/flash_attention.cu",
-                     "hsi_dmgasr_tpu/kernels/flash_attention.py:119", flash_rows,
+                     "hsi_dmgasr_tpu/kernels/flash_attention.py:119", report["flash_signatures"],
                      launches(FLASH)),
         kernel_entry(UP2, "hsi_dmgasr_tpu_torch/csrc/up2_conv.cu",
-                     "none (hsi_dmgasr_tpu/ops/fused_up.py:up2_conv3x3 is XLA's)", up2,
-                     launches(UP2)),
+                     "none (hsi_dmgasr_tpu/ops/fused_up.py:up2_conv3x3 is XLA's)",
+                     report["up2_signatures"], launches(UP2)),
         kernel_entry(SPLIT, "hsi_dmgasr_tpu_torch/csrc/split_attention.cu",
                      "none (hsi_dmgasr_tpu/kernels/attention.py:_xla_attention is XLA's)",
-                     split_rows, {p: report["paths"][p]["launches"][SPLIT] for p in SPLIT_PATHS}),
+                     report["split_signatures"], launches(SPLIT)),
         kernel_entry(DOT, "hsi_dmgasr_tpu_torch/csrc/blocked_dot.cu",
-                     "tools/microbench_int8.py:88", dot_rows,
-                     {PROBE: probe["launches"][DOT],
-                      **{p: report["paths"][p]["launches"][DOT] for p in ZOO_PATHS}}),
+                     "tools/microbench_int8.py:88", report["dot_signatures"],
+                     launches(DOT, (PROBE, *ZOO_PATHS))),
     ]
-    for e in entries:
-        for path, p in e["paths"].items():
-            log(f"[{path}] {e['name']} per counted run: {p['launches']} launches, kernel "
-                f"{p['ms']:.3f} ms, bound {p['bound_ms']:.3f}, plain {p['plain_ms']:.3f}, "
-                f"library {p['library_ms']:.3f}")
     report["kernels"] = entries
-    if args.profile:
-        with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:
-            json.dump({p: report["paths"][p].pop("profile")
-                       for p in (*PATHS, BENCH, TRAIN_GAE, TRAIN, SAMPLE, INFER)}, f,
-                      indent=1)
     report["script_s"] = time.perf_counter() - t_script
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(report, f, indent=1)
-    log("kernel times are summed over the counted run of each path: launches of each "
-        "signature x time per launch")
+        json.dump(report, f, indent=1, default=str)
     log(f"script seconds: {report['script_s']:.1f}")
     log(card)
     log(json.dumps({"kernels": entries}))

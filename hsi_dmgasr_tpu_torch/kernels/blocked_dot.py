@@ -21,6 +21,7 @@ remainder undefined, so M % bm and N % bn must be 0.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
@@ -52,18 +53,10 @@ def pack_dot_weight(w):
 # ------------------------------------------------------------------ CUDA kernel
 
 
-def _entry():
-    lib = build.load("blocked_dot")
-    fn = lib.hsi_blocked_dot
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def _check(cond, msg):
-    if not cond:
-        raise ValueError(f"blocked_dot: {msg}")
+_check = partial(build.check, "blocked_dot")
 
 
 def _check_inputs(x, w_packed, bm, bn):
@@ -86,13 +79,9 @@ def _launch(x, w_packed):
     _check(x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0,
            "x and packed w must be 16-byte aligned")
     out = torch.empty((m, n), dtype=DTYPES[x.dtype][0], device=x.device)
-    fn = _entry()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, n, k,
-                int(x.dtype == torch.int8), stream)
-    if rc != 0:
-        raise RuntimeError(f"blocked_dot kernel launch failed: cudaError {rc}")
+    fn = build.entry("blocked_dot", "hsi_blocked_dot", _ARGTYPES)
+    build.launch("blocked_dot", fn, x.device, x, w_packed, out,
+                 m, n, k, int(x.dtype == torch.int8))
     LAUNCHES += 1
     return out
 
@@ -103,8 +92,5 @@ def blocked_dot(x, w_packed, bm, bn):
     int8 -> int32 or bf16 -> f32: launches the kernel for CUDA tensors
     and runs ``blocked_dot_plain`` for CPU tensors."""
     _check_inputs(x, w_packed, bm, bn)
-    if x.device.type == "cpu":
-        return blocked_dot_plain(x, w_packed.t())
-    if x.device.type != "cuda":
-        raise ValueError(f"blocked_dot: unsupported device {x.device}")
-    return _launch(x, w_packed)
+    return build.dispatch("blocked_dot", x.device, lambda: blocked_dot_plain(x, w_packed.t()),
+                          lambda: _launch(x, w_packed))

@@ -10,6 +10,13 @@ and so a fresh build. The host sources,
 the same way with ``g++`` (``build_host``, ``load_host``). Nothing is
 built when a module is imported, so the package imports on a machine
 without CUDA.
+
+Every kernel wrapper calls its C entry the same way: ``check`` raises its
+``ValueError``s, ``dispatch`` runs its plain version on the CPU and its
+kernel on CUDA, ``entry`` declares the entry's argument types once, and
+``launch`` calls it on the current stream of the tensors' device and
+turns its error code into a ``RuntimeError``. ``split_bf16`` is the
+hi + lo split that the kernels on split bf16 operands share.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -117,3 +126,44 @@ def load_host(name):
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(build_host(name)))
     return _LIBS[name]
+
+
+def check(name, cond, msg):
+    """Raise ``ValueError(f"{name}: {msg}")`` unless ``cond``."""
+    if not cond:
+        raise ValueError(f"{name}: {msg}")
+
+
+def dispatch(name, device, plain, kernel):
+    """``plain()`` on the CPU, ``kernel()`` on CUDA; raises on other devices."""
+    if device.type == "cpu":
+        return plain()
+    check(name, device.type == "cuda", f"unsupported device {device}")
+    return kernel()
+
+
+def split_bf16(t):
+    """t as the f32 values of its bf16 pair: hi = bf16(t), lo = bf16(t - hi)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def entry(name, symbol, argtypes):
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` (built and loaded on
+    first use), its ``argtypes`` and int return code declared on first use."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name, fn, device, *args):
+    """``fn(*args, stream)`` under ``device``, on its current stream, each
+    tensor in ``args`` passed as its data pointer. Raises ``RuntimeError``
+    when the C entry returns a CUDA error code."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        rc = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

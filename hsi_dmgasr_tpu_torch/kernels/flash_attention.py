@@ -25,6 +25,7 @@ qkv split); returns a contiguous (B, S, H, D) in q.dtype.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
@@ -74,20 +75,12 @@ def flash_attention_plain(q, k, v, scale):
 # ------------------------------------------------------------------ CUDA kernel
 
 
-def _entry():
-    lib = build.load("flash_attention")
-    fn = lib.hsi_flash_attention
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
+             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+             + [ctypes.c_void_p] * 2)
 
 
-def _check(cond, msg):
-    if not cond:
-        raise ValueError(f"flash_attention: {msg}")
+_check = partial(build.check, "flash_attention")
 
 
 def _check_inputs(q, k, v):
@@ -125,15 +118,11 @@ def run_phases(q, k, v, scale, out, scratch, phases=3):
         _check(t.data_ptr() % 16 == 0
                and all(st % per16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1),
                f"{name} rows must be 16-byte aligned")
-    fn = _entry()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                b, s, h, d, _operand_scale(scale, q.dtype), int(q.dtype == torch.bfloat16),
-                phases, None if scratch is None else scratch.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
+    fn = build.entry("flash_attention", "hsi_flash_attention", _ARGTYPES)
+    build.launch("flash_attention", fn, q.device, q, k, v, out,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 b, s, h, d, _operand_scale(scale, q.dtype), int(q.dtype == torch.bfloat16),
+                 phases, scratch)
     return out
 
 
@@ -151,8 +140,6 @@ def flash_attention(q, k, v, scale):
     launches the kernel for CUDA tensors and runs ``flash_attention_plain``
     for CPU tensors."""
     _check_inputs(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, scale)
+    return build.dispatch("flash_attention", q.device,
+                          lambda: flash_attention_plain(q, k, v, scale),
+                          lambda: _launch(q, k, v, scale))

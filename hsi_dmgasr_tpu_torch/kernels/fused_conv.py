@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -222,23 +223,11 @@ def pack_conv3x3(kernel, res_kernel=None):
     return PackedConv3x3(wpack, rpack, cin, cout)
 
 
-def _entry():
-    lib = build.load("fused_conv")
-    fn = lib.hsi_gn_swish_conv3x3
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _check(cond, msg):
-    if not cond:
-        raise ValueError(f"gn_swish_conv3x3: {msg}")
+_check = partial(build.check, "gn_swish_conv3x3")
 
 
 def _launch(x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
@@ -297,18 +286,12 @@ def _launch(x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
     stats = torch.zeros((B, H, 2, cout), dtype=torch.float32, device=dev) if emit_stats else None
     res = torch.empty((B, H, W, cout), dtype=x.dtype, device=dev) if res_kernel is not None else None
 
-    fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(_ptr(x), _ptr(x2), _ptr(scale), _ptr(shift), _ptr(packed.wpack),
-                _ptr(packed.rpack), _ptr(bias), _ptr(tb), _ptr(residual), _ptr(rb),
-                _ptr(out), _ptr(stats), _ptr(res), B, H, W, C, C2, cout,
-                int(x.dtype == torch.bfloat16), _ptr(hp), _ptr(hn), _ptr(hp2), _ptr(hn2),
-                int(is_first), int(is_last), stream)
+    fn = build.entry("fused_conv", "hsi_gn_swish_conv3x3", _ARGTYPES)
+    build.launch("gn_swish_conv3x3", fn, dev, x, x2, scale, shift, packed.wpack, packed.rpack,
+                 bias, tb, residual, rb, out, stats, res, B, H, W, C, C2, cout,
+                 int(x.dtype == torch.bfloat16), hp, hn, hp2, hn2, int(is_first), int(is_last))
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[route(cout)] += 1
-    if rc != 0:
-        raise RuntimeError(f"gn_swish_conv3x3 kernel launch failed: cudaError {rc}")
     results = [out]
     if emit_stats:
         results.append(stats)
@@ -343,11 +326,8 @@ def gn_swish_conv3x3(x, gn_scale, gn_bias, kernel, bias, time_bias=None,
     args = (x, gn_scale, gn_bias, kernel, bias, time_bias, residual, x2,
             stats_in, num_groups, eps, emit_stats, res_kernel, res_bias, stats_in2,
             mesh, halo, halo2)
-    if x.device.type == "cpu":
-        return gn_swish_conv3x3_plain(*args)
-    if x.device.type != "cuda":
-        raise ValueError(f"gn_swish_conv3x3: unsupported device {x.device}")
-    return _launch(*args, packed)
+    return build.dispatch("gn_swish_conv3x3", x.device, lambda: gn_swish_conv3x3_plain(*args),
+                          lambda: _launch(*args, packed))
 
 
 # ------------------------------------------------------------------ thin Block
@@ -357,13 +337,13 @@ def gn_swish_conv3x3_thin(x, gn_scale, gn_bias, kernel, bias, stats_in=None, num
                           eps=1e-5, mesh=None, halo=None):
     """The Block for thin outputs in plain torch, no kernel: the port of
     ``hsi_dmgasr_tpu/kernels/fused_conv.py:gn_swish_conv3x3_thin`` (an XLA
-    lowering there, not Pallas), which the UNet's final conv (64 -> 3)
-    takes only under ``HSI_THIN_FINAL`` (``models/unet.py:Block.fused``).
-    GroupNorm from the chained per-row ``stats_in`` (or x's own), swish,
-    then a 3x3 SAME conv in f32 sums, cast to x.dtype. Under an H-shard
-    (``mesh``) the conv reads the neighbours' rows ``halo`` (from
-    ``exchange_halo``), activated with the same whole-image moments and
-    zeroed at the true image edges. Returns (B, H, W, Cout)."""
+    lowering there, not Pallas). No path of the port calls it: the UNet's
+    final conv (64 -> 3) takes the kernel's thin route. GroupNorm from the
+    chained per-row ``stats_in`` (or x's own), swish, then a 3x3 SAME conv
+    in f32 sums, cast to x.dtype. Under an H-shard (``mesh``) the conv
+    reads the neighbours' rows ``halo`` (from ``exchange_halo``), activated
+    with the same whole-image moments and zeroed at the true image edges.
+    Returns (B, H, W, Cout)."""
     scale, shift = gn_scale_shift(x, gn_scale, gn_bias, stats_in=stats_in,
                                   num_groups=num_groups, eps=eps, mesh=mesh)
 

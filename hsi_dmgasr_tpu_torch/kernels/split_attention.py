@@ -32,10 +32,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+from functools import partial
 
 import torch
 
 from . import build
+from .build import split_bf16
 
 LAUNCHES = 0
 
@@ -43,12 +45,6 @@ HEAD_DIM_STEP = 64   # the kernel takes D % 64 == 0 (64-column TMA boxes)
 MAX_HEADS = 65535    # B * H: one grid dimension a (batch, head)
 TILE_KEYS = 256      # the logits kernel's keys a tile (L_BN): one (max, sum) per row and tile
 _LOG2E = 1.0 / math.log(2.0)
-
-
-def _split(x):
-    """x (f32) as the f32 values of its pair hi = bf16(x), lo = bf16(x - hi)."""
-    hi = x.to(torch.bfloat16).float()
-    return hi, (x - hi).to(torch.bfloat16).float()
 
 
 def _products(a, b):
@@ -61,26 +57,20 @@ def split_attention_plain(q, k, v, scale):
     """The kernel's function in plain PyTorch, with its splits and its
     base-2 softmax."""
     q, k, v = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
-    qs = _split(q * scale)
-    ks = tuple(t.transpose(-1, -2) for t in _split(k))
+    qs = split_bf16(q * scale)
+    ks = tuple(t.transpose(-1, -2) for t in split_bf16(k))
     t = _products(qs, ks) * _LOG2E
     p = torch.exp2(t - t.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True)
-    o = _products(_split(p), _split(v)) / l
+    o = _products(split_bf16(p), split_bf16(v)) / l
     return o.permute(0, 2, 1, 3).contiguous()
 
 
 # ------------------------------------------------------------------ CUDA kernel
 
 
-def _entry():
-    lib = build.load("split_attention")
-    fn = lib.hsi_split_attention
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
+             + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def split_bound(q, k, v, scale):
@@ -103,9 +93,7 @@ def takes_layout(t):
             and all(st % 4 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1))
 
 
-def _check(cond, msg):
-    if not cond:
-        raise ValueError(f"split_attention: {msg}")
+_check = partial(build.check, "split_attention")
 
 
 def _check_inputs(q, k, v):
@@ -143,15 +131,10 @@ def run_phases(q, k, v, scale, out, planes, logits, stats, phases=7):
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(takes_layout(t), f"{name} rows must be 16-byte aligned")
-    fn = _entry()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                b, s, h, d, float(scale), planes.data_ptr(), logits.data_ptr(),
-                stats.data_ptr(), phases, stream)
-    if rc != 0:
-        raise RuntimeError(f"split_attention kernel launch failed: cudaError {rc}")
+    fn = build.entry("split_attention", "hsi_split_attention", _ARGTYPES)
+    build.launch("split_attention", fn, q.device, q, k, v, out,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 b, s, h, d, float(scale), planes, logits, stats, phases)
     return out
 
 
@@ -159,12 +142,14 @@ def split_attention(q, k, v, scale):
     """softmax(q k^T * scale) v per (batch, head) at f32 class:
     (B, S, H, D) f32 -> (B, S, H, D) f32. Launches the kernel for CUDA
     tensors and runs ``split_attention_plain`` for CPU tensors."""
-    global LAUNCHES
     _check_inputs(q, k, v)
-    if q.device.type == "cpu":
-        return split_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"split_attention: unsupported device {q.device}")
+    return build.dispatch("split_attention", q.device,
+                          lambda: split_attention_plain(q, k, v, scale),
+                          lambda: _launch(q, k, v, scale))
+
+
+def _launch(q, k, v, scale):
+    global LAUNCHES
     out = run_phases(q, k, v, scale, *buffers(q))
     LAUNCHES += 1
     return out

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
@@ -32,13 +33,18 @@ KC = 32  # channels per K chunk of the CUDA kernel
 LAUNCHES_BY_ROUTE = {"kernel": 0, "transpose": 0}
 
 
+def fits(dtype, cin, cout):
+    """Whether the kernel takes a (3, 3, cin, cout) conv in ``dtype``: f32,
+    cin % 32 == 0, cout % 4 == 0."""
+    return dtype == torch.float32 and cin % KC == 0 and cout % 4 == 0
+
+
 def takes(x, kernel):
-    """Whether the kernel takes this call: x a CUDA f32 (B, H, W, C)
-    tensor, kernel a (3, 3, C, Cout) f32 one, C % 32 == 0, Cout % 4 == 0."""
-    return (x.is_cuda and x.dtype == torch.float32 and kernel.dtype == torch.float32
-            and x.dim() == 4 and kernel.dim() == 4
+    """Whether the kernel takes this call: x a CUDA (B, H, W, C) tensor,
+    kernel a (3, 3, C, Cout) one of x's dtype, that ``fits``."""
+    return (x.is_cuda and kernel.dtype == x.dtype and x.dim() == 4 and kernel.dim() == 4
             and tuple(kernel.shape[:3]) == (3, 3, x.shape[-1])
-            and x.shape[-1] % KC == 0 and kernel.shape[-1] % 4 == 0)
+            and fits(x.dtype, x.shape[-1], kernel.shape[-1]))
 
 
 @dataclass(frozen=True)
@@ -66,18 +72,10 @@ def pack_up2(taps):
     return PackedUp2(wpack, cin, cout)
 
 
-def _entry():
-    lib = build.load("up2_conv")
-    fn = lib.hsi_up2_conv3x3
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _check(cond, msg):
-    if not cond:
-        raise ValueError(f"up2_conv3x3 kernel: {msg}")
+_check = partial(build.check, "up2_conv3x3 kernel")
 
 
 def up2_conv3x3(x, packed, bias=None):
@@ -103,13 +101,7 @@ def up2_conv3x3(x, packed, bias=None):
         if bias.data_ptr() % 16:
             bias = bias.clone()
     out = torch.empty((B, 2 * H, 2 * W, cout), dtype=torch.float32, device=x.device)
-    fn = _entry()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), packed.wpack.data_ptr(),
-                None if bias is None else bias.data_ptr(), out.data_ptr(),
-                B, H, W, C, cout, stream)
+    fn = build.entry("up2_conv", "hsi_up2_conv3x3", _ARGTYPES)
+    build.launch("up2_conv3x3", fn, x.device, x, packed.wpack, bias, out, B, H, W, C, cout)
     LAUNCHES_BY_ROUTE["kernel"] += 1
-    if rc != 0:
-        raise RuntimeError(f"up2_conv3x3 kernel launch failed: cudaError {rc}")
     return out

@@ -57,7 +57,6 @@ the noise encoding stays in the noise level's dtype.
 from __future__ import annotations
 
 import math
-import os
 from contextlib import contextmanager
 from functools import partial
 
@@ -68,7 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
 from ..kernels import up2_conv
-from ..kernels.fused_conv import gn_swish_conv3x3, gn_swish_conv3x3_thin, pack_conv3x3
+from ..kernels.fused_conv import gn_swish_conv3x3, pack_conv3x3
 from ..ops.blocks import Conv2d
 from ..ops.fused_up import parity_taps, up2_conv3x3
 from ..parallel.spatial import (conv3x3_spatial, exchange_halo, gather_rows,
@@ -226,6 +225,16 @@ class Dropout(nn.Module):
                                                                    device=x.device))
 
 
+def packed_once(module, weights, pack):
+    """``pack()``, kept on ``module`` until one of ``weights`` changes: the
+    key is each weight's (data_ptr, _version, device), so an in-place update
+    (Adam, the EMA), a load_state_dict or a move repacks."""
+    key = tuple((w.data_ptr(), w._version, w.device) for w in weights)
+    if key != module._packed_key:
+        module._packed, module._packed_key = pack(), key
+    return module._packed
+
+
 def remat_contexts(block):
     """The (forward, recompute) contexts of one ``checkpoint`` of ``block``.
     checkpoint restores only the global RNGs for its recompute; a Dropout
@@ -281,26 +290,14 @@ class Block(nn.Module):
         return self.block(x)
 
     def _pack(self, res_conv):
-        weights = [self.block[3].weight]
-        if res_conv is not None:
-            weights.append(res_conv.weight)
-        key = tuple((w.data_ptr(), w._version, w.device) for w in weights)
-        if key != self._packed_key:
-            res_k = None if res_conv is None else res_conv.weight.permute(2, 3, 1, 0)
-            self._packed = pack_conv3x3(self.block[3].weight.permute(2, 3, 1, 0), res_k)
-            self._packed_key = key
-        return self._packed
+        convs = (self.block[3],) if res_conv is None else (self.block[3], res_conv)
+        return packed_once(self, [c.weight for c in convs], lambda: pack_conv3x3(
+            *(c.weight.permute(2, 3, 1, 0) for c in convs)))
 
     def fused(self, x, time_bias=None, residual=None, x2=None, stats_in=None,
               emit_stats=False, res_conv=None, stats_in2=None, spatial=None):
         """Under ``spatial`` x (and x2) are H-shards: their halo rows are
-        exchanged and handed to the kernel with the mesh.
-
-        With ``HSI_THIN_FINAL`` set, a thin Block (Cout * 2 <= 64: the
-        final conv) with chained moments and no extras runs
-        ``gn_swish_conv3x3_thin`` in plain torch instead of the kernel,
-        the JAX package's opt-in switch (``models/unet.py:158-176``
-        there): its measurements found the composed chain slower."""
+        exchanged and handed to the kernel with the mesh."""
         gn, conv = self.block[0], self.block[3]
         res_k = res_b = None
         if res_conv is not None:
@@ -310,13 +307,6 @@ class Block(nn.Module):
             halo = exchange_halo(x, spatial)
             if x2 is not None:
                 halo2 = exchange_halo(x2, spatial)
-        if (conv.out_channels * 2 <= 64 and stats_in is not None and x2 is None
-                and residual is None and time_bias is None and res_conv is None
-                and not emit_stats and os.environ.get("HSI_THIN_FINAL")):
-            return gn_swish_conv3x3_thin(
-                x, gn.weight, gn.bias, conv.weight.permute(2, 3, 1, 0), conv.bias,
-                stats_in=stats_in, num_groups=gn.num_groups, eps=gn.eps, mesh=spatial,
-                halo=halo)
         return gn_swish_conv3x3(
             x, gn.weight, gn.bias, conv.weight.permute(2, 3, 1, 0), conv.bias,
             time_bias=time_bias, residual=residual, x2=x2, stats_in=stats_in,
@@ -482,12 +472,8 @@ class Upsample(nn.Module):
         self._packed_key = None
 
     def _pack(self, kernel):
-        w = self.conv.weight
-        key = (w.data_ptr(), w._version, w.device)
-        if key != self._packed_key:
-            self._packed = up2_conv.pack_up2(parity_taps(kernel))
-            self._packed_key = key
-        return self._packed
+        return packed_once(self, (self.conv.weight,),
+                           lambda: up2_conv.pack_up2(parity_taps(kernel)))
 
     @traced("unet.up_conv")
     def forward(self, x, fused=False, spatial=None):
@@ -596,13 +582,20 @@ class UNet(nn.Module):
             for b, f in zip(blocks, saved[1]):
                 b.fuse = f
 
+    def fused_routes(self):
+        """(Blocks, up path): whether a forward runs each on its fused route.
+        Both need ``fuse_blocks`` in eval mode; the Blocks also GroupNorm,
+        the fused kernel's norm."""
+        up = self.fuse_blocks and not self.training
+        return up and self.norm == "group", up
+
     @traced("unet.forward")
     def forward(self, x, time, spatial=None):
         """x: (B, H, W, in_channel) NHWC; time: the (B, 1) noise level, or
         with the discrete embedding the (B,) integer timestep. ``spatial``:
         this rank's mesh, x its H-shard (the fused inference path only)."""
-        fused = self.fuse_blocks and not self.training
-        if spatial is not None and not (fused and self.norm == "group"):
+        blocks, fused = self.fused_routes()
+        if spatial is not None and not blocks:
             raise NotImplementedError(_SPATIAL_UNFUSED)
         mlp = self.time_mlp if self.time_mlp is not None else self.noise_level_mlp
         emb = mlp(time) if mlp is not None else None
@@ -635,6 +628,6 @@ class UNet(nn.Module):
                 h, h_stats = resblock(layer, h, x2=x2, stats_in=h_stats, x2_stats=x2_stats)
             else:
                 h, h_stats = layer(h, fused=fused, spatial=spatial), None
-        if fused and self.norm == "group":
+        if blocks:
             return self.final_conv.fused(h, stats_in=h_stats, spatial=spatial)
         return self.final_conv(h)

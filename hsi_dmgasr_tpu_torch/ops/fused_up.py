@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import up2_conv
+from ..kernels.build import split_bf16
 
 
 def _compose_up2(kernel):
@@ -44,12 +45,6 @@ def parity_taps(kernel):
     k = _compose_up2(kernel.float())
     c, cout = k.shape[2:]
     return k.reshape(2, 2, 2, 2, c, cout).permute(1, 3, 0, 2, 4, 5)
-
-
-def split_bf16(t):
-    """t as the f32 values of its bf16 pair: hi = bf16(t), lo = bf16(t - hi)."""
-    hi = t.to(torch.bfloat16).float()
-    return hi, (t - hi).to(torch.bfloat16).float()
 
 
 def up2_conv3x3_transpose(x, kernel, bias=None):

@@ -6,9 +6,9 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
 It builds ``csrc/fused_conv.cu`` as it is and with parts of its wgmma K
 step (the ring's loads, the barrier, the activation, the A loads with the
 MMAs) taken out (one nvcc per variant, all at once), and times each
-variant's launch alone, replayed in a CUDA graph, at three main-path
-signatures of the fused Block (B=9): a Wide tile with a residual, a Tall
-tile, and a Wide tile with the projection, all f32. A variant without its
+variant's launch alone (``chip_smoke.kernel_ms``, a CUDA graph's replays)
+at three main-path signatures of the fused Block (B=9): a Wide tile with
+a residual, a Tall tile, and a Wide tile with the projection, all f32. A variant without its
 copies or its barrier computes garbage: only its time means anything.
 Each ablation is a set of exact edits of the source; the script stops if
 one no longer applies. Prints one line per variant and signature, and writes
@@ -99,12 +99,11 @@ def main():
         build._LIBS["fused_conv"] = ctypes.CDLL(str(so))
         for sig, args, kw in cases:
             packed = fc.pack_conv3x3(args[3], kw.get("res_kernel"))
-            ms = cs.graph_ms(cs.bare_launch(fc, args, kw, packed))
-            bound_ms, _ = cs.bound(sig)
-            rows.append({"variant": name, "signature": cs.describe(sig), "kernel_ms": ms,
-                         "bound_ms": bound_ms})
-            print(f"{name:<20} {cs.describe(sig):<40} kernel alone {ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms")
+            out, launch = cs.relaunch(lambda: fc.gn_swish_conv3x3(*args, packed=packed, **kw))
+            ms = cs.kernel_ms(launch)
+            del out
+            rows.append({"variant": name, "signature": cs.describe(sig), "kernel_ms": ms})
+            print(f"{name:<20} {cs.describe(sig):<40} kernel alone {ms:.4f} ms")
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     with open(os.path.join(cs.OUT_DIR, "fused_conv_ablation.json"), "w") as f:
         json.dump({"card": card, "rows": rows}, f, indent=1)

@@ -54,7 +54,7 @@ def main():
         print(tag, json.dumps(runs[tag]), flush=True)
 
     run("seeded_gae", seeded)
-    _, trained = cs.run_train_gae(False, dirs)
+    _, trained = cs.run_train_gae(dirs)
     run("trained_gae", trained)
     run("seeded_gae_after_training", seeded)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

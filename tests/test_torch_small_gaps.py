@@ -1,13 +1,10 @@
 """Small pieces of the port against the JAX package: ``DDPMModel``'s
-``get_current_log`` and ``n_params``, and the thin Block that
-``HSI_THIN_FINAL`` switches the UNet's final conv to.
-
-The thin Block (``kernels/fused_conv.py:gn_swish_conv3x3_thin``, plain
-torch) is held to the JAX ``gn_swish_conv3x3_thin`` within 1e-5 (atol
-and rtol, f32), with and without chained moments; its H-shard form
-(halo rows, the whole image's moments) to its whole-image form within
-1e-6; and a UNet forward with ``HSI_THIN_FINAL`` set to the same
-forward with its final Block on the unfused f32 route within 1e-5.
+``get_current_log`` and ``n_params``, and the thin Block
+(``kernels/fused_conv.py:gn_swish_conv3x3_thin``, plain torch, the port of
+the JAX function), held to the JAX ``gn_swish_conv3x3_thin`` within 1e-5
+(atol and rtol, f32), with and without chained moments, and its H-shard
+form (halo rows, the whole image's moments) to its whole-image form
+within 1e-6.
 """
 
 import jax.numpy as jnp
@@ -17,7 +14,6 @@ import torch
 
 from hsi_dmgasr_tpu.kernels import fused_conv as jfc
 from hsi_dmgasr_tpu_torch.kernels import fused_conv as pfc
-from hsi_dmgasr_tpu_torch.models.unet import UNet
 from hsi_dmgasr_tpu_torch.parallel.mesh import Mesh
 from hsi_dmgasr_tpu_torch.train.ddpm_model import DDPMModel
 from test_torch_train import _batch, _opt
@@ -62,29 +58,6 @@ def test_thin_block_h_shards(monkeypatch):
         parts.append(pfc.gn_swish_conv3x3_thin(x[:, lo:hi], *d.values(), num_groups=4,
                                                mesh=mesh, halo=halo))
     torch.testing.assert_close(torch.cat(parts, 1), whole, atol=1e-6, rtol=1e-6)
-
-
-def test_unet_thin_final_switch(monkeypatch):
-    unet = UNet(in_channel=6, out_channel=3, inner_channel=8, norm_groups=4,
-                channel_mults=(1, 2), attn_res=(8,), res_blocks=1, image_size=16,
-                fuse_blocks=True).eval()
-    x = torch.tensor(np.random.RandomState(2).randn(2, 16, 16, 6).astype(np.float32))
-    t = torch.full((2, 1), 0.5)
-    calls = []
-    real = pfc.gn_swish_conv3x3_thin
-    monkeypatch.setattr("hsi_dmgasr_tpu_torch.models.unet.gn_swish_conv3x3_thin",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
-    with torch.no_grad():
-        monkeypatch.setenv("HSI_THIN_FINAL", "1")
-        got = unet(x, t)
-        assert len(calls) == 1  # the final conv only
-        # the same forward with the final Block on its unfused f32 route
-        # (the fused route's plain version carries the kernel's bf16 operands)
-        monkeypatch.setattr(unet.final_conv, "fused",
-                            lambda h, stats_in=None, spatial=None: unet.final_conv(h))
-        want = unet(x, t)
-    assert len(calls) == 1
-    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
 
 
 def test_current_log_and_n_params():
